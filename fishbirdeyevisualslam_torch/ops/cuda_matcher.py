@@ -1,0 +1,173 @@
+"""Fused projection matchers: the wrappers of kernel ``csrc/matcher.cu`` and
+their plain PyTorch versions.
+
+Replace ``fishbirdeyevisualslam_tpu/ops/pallas_matcher.py``'s
+``fused_projection_match`` and ``fused_projection_match_dual``.  Both take
+
+  pm1_a (Na, 256) +/-1 query descriptors, uv_a (Na, 2), oct_a (Na,), valid_a (Na,);
+  pm1_b (Nb, 256) +/-1 target descriptors, uv_b (Nb, 2) projected positions,
+  radius_b (Nb,) or scalar search window, pred_b (Nb,) predicted octave
+  (< 0: no octave gate), valid_b (Nb,);
+
+and match each query to the targets with |du|, |dv| <= radius and, with
+``level_window``, an octave within [pred - 1, pred + 1]: exactly
+``matcher.match`` on that compatibility mask.  The wrappers launch the kernel
+for CUDA tensors and run the plain version for CPU tensors; there is no other
+fall-back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from fishbirdeyevisualslam_torch import _cuda
+from fishbirdeyevisualslam_torch.ops import matcher
+from fishbirdeyevisualslam_torch.ops.matcher import MatchResult
+
+ROWS_PER_BLOCK = 64   # query rows per block (csrc/matcher.cu: TA)
+COLS_PER_TILE = 32    # target columns per tile (csrc/matcher.cu: TB)
+
+
+def _radius(radius_b, n: int, dev):
+    """(n,) f32 per-target radii from a tensor or a number (a number is filled
+    on the device: a host tensor would cost a synchronising copy)."""
+    if isinstance(radius_b, torch.Tensor):
+        return torch.broadcast_to(radius_b.to(torch.float32), (n,))
+    return torch.full((n,), float(radius_b), dtype=torch.float32, device=dev)
+
+
+def _compat(uv_a, oct_a, valid_a, uv_b, radius_b, pred_b, valid_b, level_window, scale=1.0):
+    r = _radius(radius_b, uv_b.shape[0], uv_b.device) * scale
+    d = torch.abs(uv_a[:, None, :] - uv_b[None, :, :])
+    compat = (d[..., 0] <= r[None, :]) & (d[..., 1] <= r[None, :])
+    if level_window:
+        d_oct = oct_a[:, None].to(torch.float32) - pred_b[None, :].to(torch.float32)
+        compat = compat & (((d_oct >= -1) & (d_oct <= 1)) | (pred_b[None, :] < 0))
+    return compat & valid_a[:, None] & valid_b[None, :]
+
+
+def fused_projection_match_plain(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b,
+                                 pred_b, valid_b, max_dist: float,
+                                 level_window: bool = False,
+                                 ratio: Optional[float] = None) -> MatchResult:
+    """The dense reference: ``matcher.match`` on the gated compatibility mask."""
+    compat = _compat(uv_a, oct_a, valid_a, uv_b, radius_b, pred_b, valid_b, level_window)
+    return matcher.match(pm1_a, pm1_b, compat, max_dist=max_dist, ratio=ratio)
+
+
+def fused_projection_match_dual_plain(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b,
+                                      pred_b, valid_b, max_dist: float,
+                                      r2_scale: float = 2.0, level_window: bool = False):
+    """The dense reference of the dual-radius matcher: one ``matcher.match``
+    per window (radius, radius * r2_scale)."""
+    return tuple(
+        matcher.match(pm1_a, pm1_b,
+                      _compat(uv_a, oct_a, valid_a, uv_b, radius_b, pred_b, valid_b,
+                              level_window, scale),
+                      max_dist=max_dist)
+        for scale in (1.0, r2_scale))
+
+
+def _launch(dual, pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
+            max_dist, level_window, ratio, r2_scale):
+    dev = pm1_a.device
+    for name, t in (("pm1_a", pm1_a), ("uv_a", uv_a), ("oct_a", oct_a), ("valid_a", valid_a),
+                    ("pm1_b", pm1_b), ("uv_b", uv_b), ("pred_b", pred_b),
+                    ("valid_b", valid_b)):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"projection match: {name} must lie on the CUDA device {dev}")
+    na, nb = pm1_a.shape[0], pm1_b.shape[0]
+    for name, t in (("pm1_a", pm1_a), ("pm1_b", pm1_b)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or t.shape[1] != 256 \
+                or not t.is_contiguous() or t.data_ptr() % 32:
+            raise ValueError(f"projection match: {name} must be a contiguous, 32-byte aligned "
+                             "(N, 256) bfloat16 tensor")
+    if nb > 65536:
+        raise ValueError(f"projection match: at most 65536 targets, got {nb}")
+    if uv_a.shape != (na, 2) or uv_b.shape != (nb, 2) or oct_a.shape != (na,) \
+            or valid_a.shape != (na,) or pred_b.shape != (nb,) or valid_b.shape != (nb,):
+        raise ValueError("projection match: aux shapes do not match the descriptors")
+    f32 = torch.float32
+    na_pad = -(-max(na, 1) // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
+    if na_pad != na:
+        a = torch.zeros((na_pad, 256), dtype=torch.bfloat16, device=dev)
+        a[:na] = pm1_a
+        pm1_a = a
+    # gate precompute: invalid queries never pass the window (u = -1e6), invalid
+    # targets carry r = -1, the octave gate is a target-side interval
+    au = torch.where(valid_a, uv_a[:, 0].to(f32), -1e6)
+    av = uv_a[:, 1].to(f32).contiguous()
+    ao = oct_a.to(f32).contiguous()
+    br = torch.where(valid_b, _radius(radius_b, nb, dev), -1.0)
+    bu = uv_b[:, 0].to(f32).contiguous()
+    bv = uv_b[:, 1].to(f32).contiguous()
+    predf = pred_b.to(f32)
+    no_oct = predf < 0
+    blo = torch.where(no_oct, -1e9, predf - 1.0)
+    bhi = torch.where(no_oct, 1e9, predf + 1.0)
+
+    n_tiles = -(-nb // COLS_PER_TILE)
+    row_blocks = na_pad // ROWS_PER_BLOCK
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, min(n_tiles, -(-2 * sms // row_blocks)))
+    part1 = torch.empty((splits, na), dtype=torch.int32, device=dev)
+    part2 = torch.empty((splits, na), dtype=torch.int32, device=dev)
+    outs = [torch.empty((na,), dtype=t, device=dev)
+            for t in (torch.int32, f32, torch.bool) * (2 if dual else 1)]
+    out_ptrs = [o.data_ptr() for o in outs] + ([0, 0, 0] if not dual else [])
+
+    fn = _cuda.load("matcher").proj_match
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, cf, cf, ci, cf,
+                   ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    fn.restype = ci
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(int(dual), pm1_a.data_ptr(), au.data_ptr(), av.data_ptr(), ao.data_ptr(), na,
+                 na_pad, pm1_b.data_ptr(), bu.data_ptr(), bv.data_ptr(), br.data_ptr(),
+                 blo.data_ptr(), bhi.data_ptr(), nb, int(bool(level_window)), float(r2_scale),
+                 float(max_dist), int(ratio is not None),
+                 float(ratio) if ratio is not None else 0.0, splits, part1.data_ptr(),
+                 part2.data_ptr(), *out_ptrs, stream)
+    _cuda.check(err, "proj_match")
+    if dual:
+        return MatchResult(*outs[:3]), MatchResult(*outs[3:])
+    return MatchResult(*outs)
+
+
+def fused_projection_match(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b,
+                           valid_b, max_dist: float, level_window: bool = False,
+                           ratio: Optional[float] = None) -> MatchResult:
+    """Best match with second-best, ``max_dist`` and an optional ratio test."""
+    if pm1_a.device.type == "cpu":
+        return fused_projection_match_plain(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b,
+                                            radius_b, pred_b, valid_b, max_dist,
+                                            level_window, ratio)
+    out = _launch(False, pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
+                  max_dist, level_window, ratio, 1.0)
+    fused_projection_match.launches += 1
+    return out
+
+
+def fused_projection_match_dual(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b,
+                                valid_b, max_dist: float, r2_scale: float = 2.0,
+                                level_window: bool = False):
+    """Two top-1 matches from one contraction, at windows ``radius_b`` and
+    ``radius_b * r2_scale`` (r2_scale >= 1).  Returns (MatchResult, MatchResult)."""
+    if r2_scale < 1.0:
+        raise ValueError("r2_scale must be >= 1: the narrow window lies inside the wide one")
+    if pm1_a.device.type == "cpu":
+        return fused_projection_match_dual_plain(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b,
+                                                 radius_b, pred_b, valid_b, max_dist,
+                                                 r2_scale, level_window)
+    out = _launch(True, pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
+                  max_dist, level_window, None, r2_scale)
+    fused_projection_match_dual.launches += 1
+    return out
+
+
+fused_projection_match.launches = 0
+fused_projection_match_dual.launches = 0

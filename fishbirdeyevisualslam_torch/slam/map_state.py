@@ -1,0 +1,163 @@
+"""Map state: fixed-capacity struct-of-arrays with validity masks — the port
+of ``fishbirdeyevisualslam_tpu/slam/map_state.py`` (the reference's pointer
+graph of ``Map``/``KeyFrame``/``MapPoint``/``MapPointBird``, ``src/Map.h``).
+
+Functions return a new ``MapState`` (``_replace``) rather than writing in
+place, like the JAX package, so a caller's map is never changed under it.
+Packed descriptors are int32 tensors holding the JAX package's uint32 bits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from fishbirdeyevisualslam_torch.config import SystemConfig
+from fishbirdeyevisualslam_torch.device import resolve_device
+from fishbirdeyevisualslam_torch.geometry import se3
+
+
+class MapState(NamedTuple):
+    # --- keyframes -----------------------------------------------------------
+    kf_Tcw: torch.Tensor          # (K, 7) world-to-camera pose
+    kf_valid: torch.Tensor        # (K,) bool
+    kf_is_init: torch.Tensor      # (K,) bool
+    kf_odom: torch.Tensor         # (K, 3)
+    kf_timestamp: torch.Tensor    # (K,)
+    kf_frame_id: torch.Tensor     # (K,) int32
+    kf_seq: torch.Tensor          # (K,) int32 insertion sequence number (-1 free)
+    kf_uv: torch.Tensor           # (K, F, 2)
+    kf_octave: torch.Tensor       # (K, F) int32
+    kf_desc: torch.Tensor         # (K, F, 8) int32
+    kf_kp_valid: torch.Tensor     # (K, F) bool
+    kf_mp: torch.Tensor           # (K, F) int32 map point per feature, -1 none
+    kf_words: torch.Tensor        # (K, F) int32
+    kf_bird_cam: torch.Tensor     # (K, FB, 3)
+    kf_bird_desc: torch.Tensor    # (K, FB, 8) int32
+    kf_bird_octave: torch.Tensor  # (K, FB) int32
+    kf_bird_kp_valid: torch.Tensor  # (K, FB) bool
+    kf_bird_mp: torch.Tensor      # (K, FB) int32 bird point per feature, -1 none
+    # --- front map points ----------------------------------------------------
+    mp_pos: torch.Tensor          # (P, 3)
+    mp_desc: torch.Tensor         # (P, 8) int32
+    mp_desc_pm1: torch.Tensor     # (P, 256) bf16, the same descriptors as +/-1
+    mp_valid: torch.Tensor        # (P,) bool
+    mp_normal: torch.Tensor       # (P, 3) mean viewing direction
+    mp_min_dist: torch.Tensor     # (P,) scale-invariance range
+    mp_max_dist: torch.Tensor     # (P,)
+    mp_ref_kf: torch.Tensor       # (P,) int32
+    mp_visible: torch.Tensor      # (P,) int32
+    mp_found: torch.Tensor        # (P,) int32
+    mp_first_kf: torch.Tensor     # (P,) int32
+    obs_kf: torch.Tensor          # (P, M) int32
+    obs_feat: torch.Tensor        # (P, M) int32
+    obs_valid: torch.Tensor       # (P, M) bool
+    # --- bird map points -----------------------------------------------------
+    bp_pos: torch.Tensor          # (PB, 3)
+    bp_desc: torch.Tensor         # (PB, 8) int32
+    bp_desc_pm1: torch.Tensor     # (PB, 256) bf16
+    bp_valid: torch.Tensor        # (PB,) bool
+    bp_ref_kf: torch.Tensor       # (PB,) int32
+    bp_birth: torch.Tensor        # (PB,) int32 kf_seq of the creating KF
+    bp_gen: torch.Tensor          # (PB,) int32 slot generation
+    bobs_kf: torch.Tensor         # (PB, MB) int32
+    bobs_feat: torch.Tensor       # (PB, MB) int32
+    bobs_valid: torch.Tensor      # (PB, MB) bool
+    # --- counters (0-d int32) --------------------------------------------------
+    n_kf: torch.Tensor
+    kf_counter: torch.Tensor
+    n_mp: torch.Tensor
+    n_bp: torch.Tensor
+    n_pressure_evicted: torch.Tensor
+
+    @property
+    def K(self):
+        return self.kf_Tcw.shape[0]
+
+
+def empty_map(cfg: SystemConfig, device=None) -> MapState:
+    """An empty map at ``cfg.capacity``'s sizes on ``device``."""
+    dev = resolve_device(device)
+    c = cfg.capacity
+    K, F, FB = c.max_keyframes, c.max_front_kp, c.max_bird_kp
+    P, PB, M, MB = c.max_points, c.max_bird_points, c.max_obs_per_point, 8
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+
+    def z(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def full(shape, v, dtype):
+        return torch.full(shape, v, dtype=dtype, device=dev)
+
+    return MapState(
+        kf_Tcw=se3.identity((K,), device=dev),
+        kf_valid=z(K, dtype=b), kf_is_init=z(K, dtype=b), kf_odom=z(K, 3),
+        kf_timestamp=z(K), kf_frame_id=full((K,), -1, i32), kf_seq=full((K,), -1, i32),
+        kf_uv=z(K, F, 2), kf_octave=z(K, F, dtype=i32), kf_desc=z(K, F, 8, dtype=i32),
+        kf_kp_valid=z(K, F, dtype=b), kf_mp=full((K, F), -1, i32),
+        kf_words=z(K, F, dtype=i32),
+        kf_bird_cam=z(K, FB, 3), kf_bird_desc=z(K, FB, 8, dtype=i32),
+        kf_bird_octave=z(K, FB, dtype=i32), kf_bird_kp_valid=z(K, FB, dtype=b),
+        kf_bird_mp=full((K, FB), -1, i32),
+        mp_pos=z(P, 3), mp_desc=z(P, 8, dtype=i32),
+        mp_desc_pm1=full((P, 256), -1.0, torch.bfloat16), mp_valid=z(P, dtype=b),
+        mp_normal=z(P, 3), mp_min_dist=z(P), mp_max_dist=full((P,), 1e9, f32),
+        mp_ref_kf=z(P, dtype=i32), mp_visible=full((P,), 1, i32),
+        mp_found=full((P,), 1, i32), mp_first_kf=z(P, dtype=i32),
+        obs_kf=z(P, M, dtype=i32), obs_feat=z(P, M, dtype=i32), obs_valid=z(P, M, dtype=b),
+        bp_pos=z(PB, 3), bp_desc=z(PB, 8, dtype=i32),
+        bp_desc_pm1=full((PB, 256), -1.0, torch.bfloat16), bp_valid=z(PB, dtype=b),
+        bp_ref_kf=z(PB, dtype=i32), bp_birth=z(PB, dtype=i32), bp_gen=z(PB, dtype=i32),
+        bobs_kf=z(PB, MB, dtype=i32), bobs_feat=z(PB, MB, dtype=i32),
+        bobs_valid=z(PB, MB, dtype=b),
+        n_kf=z(dtype=i32), kf_counter=z(dtype=i32), n_mp=z(dtype=i32), n_bp=z(dtype=i32),
+        n_pressure_evicted=z(dtype=i32),
+    )
+
+
+def alloc_slots(valid_mask, want):
+    """First-fit free-slot allocation with recycling: the r-th wanted entry
+    gets the r-th free slot.  Slot P-1 is reserved as the dump for entries
+    that get none.  Returns (dest (B,) int32, can (B,) bool)."""
+    P = valid_mask.shape[0]
+    B = want.shape[0]
+    dev = valid_mask.device
+    iota = torch.arange(P, dtype=torch.int32, device=dev)
+    free = ~valid_mask & (iota < P - 1)
+    slots = torch.sort(torch.where(free, iota, torch.full_like(iota, P))).values[:B]
+    free_slots = torch.where(slots < P, slots, torch.full_like(slots, -1))
+    order = torch.cumsum(want.to(torch.int32), dim=0) - 1
+    # (an index past the table reads its last entry, as a JAX gather clamps)
+    slot = free_slots[order.clamp(0, free_slots.shape[0] - 1).long()]
+    can = want & (slot >= 0)
+    dest = torch.where(can, slot, torch.full_like(slot, P - 1)).to(torch.int32)
+    return dest, can
+
+
+def reset_bird_slots(m: MapState, dest, can) -> MapState:
+    """Clear the observation rows of recycled bird slots and bump their
+    generation."""
+    d = dest.long()
+    return m._replace(
+        bobs_valid=m.bobs_valid.index_put(
+            (d,), torch.where(can[:, None], torch.zeros_like(m.bobs_valid[d]), m.bobs_valid[d])),
+        bp_gen=m.bp_gen.index_add(0, d, can.to(torch.int32)),
+    )
+
+
+def scrub_stale_refs(m: MapState) -> MapState:
+    """Drop ``kf_mp``/``kf_bird_mp`` entries that point at invalid points
+    (a recycled slot would alias another landmark) and refresh the counts."""
+    P = m.mp_pos.shape[0]
+    PB = m.bp_pos.shape[0]
+    kf_mp = torch.where((m.kf_mp >= 0) & m.mp_valid[m.kf_mp.clamp(0, P - 1).long()],
+                        m.kf_mp, torch.full_like(m.kf_mp, -1))
+    kf_bird_mp = torch.where(
+        (m.kf_bird_mp >= 0) & m.bp_valid[m.kf_bird_mp.clamp(0, PB - 1).long()],
+        m.kf_bird_mp, torch.full_like(m.kf_bird_mp, -1))
+    return m._replace(
+        kf_mp=kf_mp, kf_bird_mp=kf_bird_mp,
+        n_mp=torch.sum(m.mp_valid.to(torch.int32)).to(torch.int32),
+        n_bp=torch.sum(m.bp_valid.to(torch.int32)).to(torch.int32),
+    )
