@@ -4,18 +4,22 @@ NVIDIA GPU and check it.
 
     python3 chip_smoke.py                 # all phases (one card, nvcc)
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
-    python3 chip_smoke.py --profile       # all phases + one frame under torch.profiler
+    python3 chip_smoke.py --profile       # all phases + the profiled frame's op table
 
 Phases, each printing its lines:
   1. the card and the toolchain; the kernels built from
      fishbirdeyevisualslam_torch/csrc/ (one nvcc per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, with the device time of both (CUDA graph replays timed by
-     CUDA events);
+     CUDA events): FAST, the patch gather and both projection matchers; the
+     fused pose optimisation on a stream frame's own inputs and on a
+     synthetic problem; the packed Hamming matrix and masked match at
+     scripts/bench_matcher.py's shapes;
   3. the per-frame slice (build_frame + track_frame_core) at full width
      with the default SystemConfig, a 32-frame stream (each frame under fresh
      sensor noise, the map and the last frame carried over), with each
-     kernel's launch count over that stream;
+     kernel's launch count over that stream, and one frame under
+     torch.profiler (device activities and busy share);
   4. the stream's next frame through the kernels' plain versions, and its
      tracking through the CPU's dense route, each compared with the kernels.
 Then the kernel table as one JSON line, the card's name and power limit, and
@@ -42,7 +46,10 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 N_STREAM = 32
+N_PHASE = 8   # frames timed phase by phase after the stream
 NOISE = 2.0  # grey levels of per-frame sensor noise on the stream's images
+# packed Hamming kernels: queries, targets, window radius (scripts/bench_matcher.py)
+HAMMING_SHAPE = (2048, 16384, 50.0)
 
 
 def fail(msg: str) -> None:
@@ -118,9 +125,11 @@ def plain_kernels():
     so that the main path, which looks them up at each call, runs without the
     kernels: the reference the kernels are held against on the card."""
     from fishbirdeyevisualslam_torch.ops import cuda_fast, cuda_matcher, cuda_patch
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
     swaps = [(cuda_fast, "fast_detect_levels"), (cuda_patch, "extract_patches"),
              (cuda_matcher, "fused_projection_match"),
-             (cuda_matcher, "fused_projection_match_dual")]
+             (cuda_matcher, "fused_projection_match_dual"),
+             (cuda_pose_opt, "pose_optimization")]
     saved = [getattr(mod, name) for mod, name in swaps]
     try:
         for mod, name in swaps:
@@ -247,6 +256,177 @@ def phase_kernels(torch, cfg, dev):
     return rows
 
 
+def pose_problem(torch, cfg, dev, n: int, nb: int, seed: int, outlier_frac: float = 0.1):
+    """tests/test_pallas_pose_opt.py:make_problem at n front and nb bird
+    observations: points seen from a known pose, 0.5 px pixel noise, the
+    first ``outlier_frac`` of the pixels moved 30-80 px, 1 cm bird noise.
+    Returns (true pose, FrontObs, BirdObs) on ``dev``."""
+    from fishbirdeyevisualslam_torch.geometry import camera, se3
+    from fishbirdeyevisualslam_torch.solvers.pose_opt import BirdObs, FrontObs
+    rng = np.random.RandomState(seed)
+    Xw = np.stack([rng.uniform(-8, 8, n), rng.uniform(-4, 4, n), rng.uniform(8, 30, n)],
+                  -1).astype(np.float32)
+    T_true = se3.exp(torch.tensor([0.02, -0.01, 0.03, 0.3, -0.1, 0.2]))
+    uv = camera.project_pinhole(cfg.camera, se3.transform(T_true, torch.from_numpy(Xw))).numpy()
+    uv += rng.randn(n, 2).astype(np.float32) * 0.5
+    n_out = int(outlier_frac * n)
+    uv[:n_out] += rng.uniform(30, 80, (n_out, 2)).astype(np.float32)
+    Xb = np.stack([rng.uniform(2, 12, nb), rng.uniform(-5, 5, nb), np.zeros(nb)],
+                  -1).astype(np.float32)
+    Xc = se3.transform(T_true, torch.from_numpy(Xb)).numpy()
+    Xc += rng.randn(nb, 3).astype(np.float32) * 0.01
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=dev)
+    return (T_true.to(dev), FrontObs(t(Xw), t(uv), t(np.ones(n)), ones(n)),
+            BirdObs(t(Xb), t(Xc), t(np.ones(nb)), ones(nb)))
+
+
+def pose_diff(a, b) -> float:
+    """Max abs of the se3 log of a * b^-1."""
+    from fishbirdeyevisualslam_torch.geometry import se3
+    return se3.log(se3.compose(a.cpu(), se3.inverse(b.cpu()))).abs().max().item()
+
+
+def phase_pose_and_hamming(torch, cfg, dev, st):
+    """Kernel 5 (the fused pose optimisation) against its plain version on a
+    frame's real associations from the stream and on a synthetic problem with
+    outliers, prior off and on; kernels 6 and 7 (packed Hamming) against
+    theirs at scripts/bench_matcher.py's shapes, exactly."""
+    from fishbirdeyevisualslam_torch.geometry import se3
+    from fishbirdeyevisualslam_torch.ops import cuda_matcher, matcher
+    from fishbirdeyevisualslam_torch.slam.frame import desc_pm1_from_packed
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+
+    rows = {}
+    # the stream's first frame, with the inputs of both pose optimisations recorded
+    calls = []
+    wrapper = cuda_pose_opt.pose_optimization
+
+    def record(cam, ba, Tcw0, front, bird, prior_T=None, prior_info=0.0):
+        calls.append((Tcw0, front, bird, prior_T, prior_info))
+        return wrapper(cam, ba, Tcw0, front, bird, prior_T, prior_info)
+
+    record.launches = 0  # the wrapper counts on its module attribute, swapped meanwhile
+    cuda_pose_opt.pose_optimization = record
+    try:
+        st.step(st.start, 0)
+    finally:
+        cuda_pose_opt.pose_optimization = wrapper
+    if len(calls) != 2:
+        fail(f"one tracked frame ran {len(calls)} pose optimisations, not 2")
+    T_true, front, bird = pose_problem(torch, cfg, dev, cfg.capacity.max_front_kp,
+                                       cfg.capacity.max_bird_kp, 0)
+    T_pert = se3.retract(T_true, torch.tensor([0.01, 0, -0.01, 0.05, 0.02, 0], device=dev))
+    cases = [(f"stream call {i + 1}", c) for i, c in enumerate(calls)] + [
+        ("synthetic, prior 0", (se3.identity(device=dev), front, bird, None, 0.0)),
+        ("synthetic, prior 100", (T_pert, front, bird, T_pert, 100.0))]
+    err = 0.0
+    for label, (T0, fo, bo, pT, info) in cases:
+        got = cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, T0, fo, bo, pT, info)
+        ref = cuda_pose_opt.pose_optimization_plain(cfg.camera, cfg.ba, T0, fo, bo, pT, info)
+        d = pose_diff(got.Tcw, ref.Tcw)
+        ff = (got.front_inlier != ref.front_inlier).float().mean().item()
+        bf = (got.bird_inlier != ref.bird_inlier).float().mean().item()
+        dn = abs(int(got.n_inliers) - int(ref.n_inliers))
+        print(f"[kernel] pose_optimization, {label}: N={fo.valid.shape[0]} "
+              f"({int(fo.valid.sum())} valid), NB={bo.valid.shape[0]} "
+              f"({int(bo.valid.sum())} valid), prior_info {info}: pose diff {d:.3g}, "
+              f"inlier flips {ff:.4f} / {bf:.4f}, n_inliers {int(got.n_inliers)} vs "
+              f"{int(ref.n_inliers)}", flush=True)
+        if not (d <= 1e-3 and ff < 0.02 and bf < 0.02 and dn <= 5):
+            fail(f"pose optimisation ({label}) differs from its plain version")
+        err = max(err, d)
+    if pose_diff(cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, se3.identity(
+            device=dev), front, bird).Tcw, T_true) > 5e-3:
+        fail("the pose kernel missed the synthetic problem's true pose")
+    # time it on the stream's second call (after the local-map match)
+    T0, fo, bo, pT, info = calls[1]
+    n_f, n_b = int(fo.valid.sum()), int(bo.valid.sum())
+    evals = cfg.ba.pose_rounds * (cfg.ba.pose_iters + 1)
+    # per active observation and evaluation: transform, residual, Jacobian,
+    # 21 + 6 weighted sums (~200 flops); per re-gate ~35 flops per observation
+    ops = evals * (n_f + n_b) * 200 + cfg.ba.pose_rounds * (fo.valid.numel()
+                                                             + bo.valid.numel()) * 35
+    nbytes = fo.valid.numel() * (6 * 4 + 1 + 1) + bo.valid.numel() * (7 * 4 + 1 + 1) + 7 * 4 * 3
+    b_ms, b_by = bound(nbytes, ops, PEAK_F32)
+    rows["pose_opt"] = dict(
+        name="pose_optimization", source="fishbirdeyevisualslam_torch/csrc/pose_opt.cu",
+        replaces="fishbirdeyevisualslam_tpu/solvers/pallas_pose_opt.py:387", max_abs_err=err,
+        ms=time_ms(torch, lambda: cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, T0, fo,
+                                                                   bo, pT, info)),
+        plain_ms=time_ms(torch, lambda: cuda_pose_opt.pose_optimization_plain(
+            cfg.camera, cfg.ba, T0, fo, bo, pT, info)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"[kernel] pose_optimization: {rows['pose_opt']['ms']:.4f} ms (plain "
+          f"{rows['pose_opt']['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}; ops {ops}, "
+          f"bytes {nbytes}; {evals} evaluations, each a block-wide reduction on one SM)",
+          flush=True)
+
+    # packed Hamming at scripts/bench_matcher.py's shapes
+    na, nb, radius = HAMMING_SHAPE
+    rng = np.random.RandomState(0)
+    words = lambda k: torch.from_numpy(rng.randint(0, 2**32, (k, 8), dtype=np.uint64)
+                                       .astype(np.uint32).view(np.int32)).to(dev)
+    da, db = words(na), words(nb)
+    uva = torch.from_numpy(rng.uniform(0, 900, (na, 2)).astype(np.float32)).to(dev)
+    uvb = torch.from_numpy(rng.uniform(0, 900, (nb, 2)).astype(np.float32)).to(dev)
+    vb = torch.ones(nb, dtype=torch.bool, device=dev)
+    # forced ties: query q's own descriptor at its position in three columns,
+    # across the kernel's target tiles and splits
+    ties = ((0, (300, 700, nb // 2 + 8)), (1, (5, 6)), (2, (nb - 1, nb // 4 + 1)))
+    for q, cols in ties:
+        for c in cols:
+            db[c], uvb[c] = da[q], uva[q]
+    if not torch.equal(cuda_matcher.hamming_matrix_packed(da, db),
+                       cuda_matcher.hamming_matrix_packed_plain(da, db)):
+        fail("hamming_matrix_packed differs from its plain version")
+    n_cand = 0
+    for label, valid in (("all valid", vb), ("no valid target", torch.zeros_like(vb))):
+        got = cuda_matcher.fused_masked_match(da, uva, db, uvb, valid, radius)
+        ref = cuda_matcher.fused_masked_match_plain(da, uva, db, uvb, valid, radius)
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            fail(f"fused_masked_match ({label}) differs from its plain version")
+        if label == "all valid":
+            if got[2][:3].tolist() != [min(c) for _, c in ties] \
+                    or got[1][:3].tolist() != [0.0] * 3:
+                fail(f"fused_masked_match broke a tie wrongly: {got[2][:3].tolist()}")
+            n_cand = int(matcher.window_mask(uva, uvb, radius).sum())
+        elif int((got[2] != -1).sum()):
+            fail("fused_masked_match matched with no valid target")
+    print(f"[kernel] packed Hamming: {na}x{nb}, radius {radius}: matrix exact; masked match "
+          f"exact (best, second, idx), ties to the lowest column, no-valid-target case all -1; "
+          f"{n_cand} pairs pass the window", flush=True)
+    pa, pb = desc_pm1_from_packed(da), desc_pm1_from_packed(db)
+    b_ms, b_by = bound((na + nb) * 32 + na * nb * 4, na * nb * 8 * 3, PEAK_F32)
+    rows["hamming"] = dict(
+        name="hamming_matrix_packed", source="fishbirdeyevisualslam_torch/csrc/hamming.cu",
+        replaces="fishbirdeyevisualslam_tpu/ops/pallas_matcher.py:43", max_abs_err=0.0,
+        ms=time_ms(torch, lambda: cuda_matcher.hamming_matrix_packed(da, db)),
+        plain_ms=time_ms(torch, lambda: cuda_matcher.hamming_matrix_packed_plain(da, db)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: (256.0 - torch.matmul(pa, pb.T).float()) * 0.5))
+    print(f"[kernel] hamming_matrix_packed: {rows['hamming']['ms']:.4f} ms (plain "
+          f"{rows['hamming']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; +/-1 bf16 "
+          f"matmul yardstick {rows['hamming']['library_ms']:.4f} ms)", flush=True)
+    # window test on every pair (~6 ops), XOR + popcount + add on the 8 words
+    # of each pair that passes, and the running top-2 update (~4 ops)
+    ops = na * nb * 6 + n_cand * (8 * 3 + 4)
+    nbytes = na * (32 + 8) + nb * (32 + 8 + 1) + na * 12
+    b_ms, b_by = bound(nbytes, ops, PEAK_F32)
+    rows["masked_match"] = dict(
+        name="fused_masked_match", source="fishbirdeyevisualslam_torch/csrc/hamming.cu",
+        replaces="fishbirdeyevisualslam_tpu/ops/pallas_matcher.py:130", max_abs_err=0.0,
+        ms=time_ms(torch, lambda: cuda_matcher.fused_masked_match(da, uva, db, uvb, vb,
+                                                                  radius)),
+        plain_ms=time_ms(torch, lambda: cuda_matcher.fused_masked_match_plain(
+            da, uva, db, uvb, vb, radius)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"[kernel] fused_masked_match: {rows['masked_match']['ms']:.4f} ms (plain "
+          f"{rows['masked_match']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; ops "
+          f"{ops}, bytes {nbytes})", flush=True)
+    return rows
+
+
 def full_width_map(torch, cfg, f0, dev):
     """The map of bench.py:40-89 at the default capacities (random points,
     descriptors, 32 keyframes, 3072 observed points), with *_desc_pm1 derived
@@ -320,9 +500,10 @@ def full_width_map(torch, cfg, f0, dev):
         obs_kf=obs_kf, obs_valid=obs_valid, kf_mp=kf_mp), t(assoc)
 
 
-def profile_frame(torch, run_frame) -> None:
-    """One frame under torch.profiler: device activities, device busy time,
-    the ops that cost the host most."""
+def profile_frame(torch, run_frame, table: bool) -> int:
+    """One frame under torch.profiler: device activities, device busy time
+    and, with ``table``, the ops that cost the host most.  Returns the number
+    of device activities."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -332,8 +513,11 @@ def profile_frame(torch, run_frame) -> None:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in kernels) / 1e3
     print(f"[profile] one frame: {wall:.1f} ms wall (profiled), {len(kernels)} device "
-          f"activities, device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of the wall time)")
-    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
+          f"activities, device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of the wall time)",
+          flush=True)
+    if table:
+        print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
+    return len(kernels)
 
 
 class Stream:
@@ -396,21 +580,22 @@ class Stream:
         return out, self.advance(f, out)
 
 
-def phase_slice(torch, cfg, dev, profile: bool = False):
+def phase_slice(torch, cfg, dev, st, profile: bool = False):
     """The per-frame slice at full width: a 32-frame stream."""
     from fishbirdeyevisualslam_torch.geometry import se3
     from fishbirdeyevisualslam_torch.ops import cuda_fast, cuda_matcher, cuda_patch
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 
     cap = cfg.capacity
     F, FB = cap.max_front_kp, cap.max_bird_kp
-    n_phase = 8
-    st = Stream(torch, cfg, dev, N_STREAM + n_phase + 2)
     state = st.start
     for i in range(3):  # warm-up from the start state: caches, allocator, cuBLAS handles
         st.step(state, i)
     torch.cuda.synchronize()
-    counters = (cuda_fast.fast_detect_levels, cuda_patch.extract_patches,
-                cuda_matcher.fused_projection_match_dual, cuda_matcher.fused_projection_match)
+    on_path = (cuda_fast.fast_detect_levels, cuda_patch.extract_patches,
+               cuda_matcher.fused_projection_match_dual, cuda_matcher.fused_projection_match,
+               cuda_pose_opt.pose_optimization)
+    counters = on_path + (cuda_matcher.hamming_matrix_packed, cuda_matcher.fused_masked_match)
     for c in counters:
         c.launches = 0
     outs = []
@@ -427,9 +612,11 @@ def phase_slice(torch, cfg, dev, profile: bool = False):
           f"M={cap.max_obs_per_point}): {N_STREAM / dt:.2f} frames/s, "
           f"{dt / N_STREAM * 1e3:.2f} ms/frame", flush=True)
     print(f"[slice] kernel launches over the stream: {json.dumps(launches)}", flush=True)
-    for name, k in launches.items():
-        if k == 0:
-            fail(f"{name} was never launched on the main path")
+    for c in on_path:
+        if launches[c.__name__] == 0:
+            fail(f"{c.__name__} was never launched on the main path")
+    if launches["pose_optimization"] != 2 * N_STREAM:
+        fail(f"the pose kernel launched {launches['pose_optimization']} times, not 2 per frame")
     sc = torch.stack([o.scalars for o in outs]).cpu().numpy()
     n_bp = torch.stack([o.map.n_bp for o in outs]).cpu().numpy()
     print(f"[slice] over the stream, min/max: n_motion {sc[:, 0].min()}/{sc[:, 0].max()}, "
@@ -438,7 +625,7 @@ def phase_slice(torch, cfg, dev, profile: bool = False):
 
     # per-phase times (synchronised around each phase) and host syncs per frame
     ph_b, ph_t = [], []
-    for i in range(N_STREAM, N_STREAM + n_phase):
+    for i in range(N_STREAM, N_STREAM + N_PHASE):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         f = st.build(i)
@@ -450,14 +637,14 @@ def phase_slice(torch, cfg, dev, profile: bool = False):
         state = st.advance(f, out)
         ph_b.append((t2 - t1) * 1e3)
         ph_t.append((t3 - t2) * 1e3)
-    i_last = N_STREAM + n_phase
+    i_last = N_STREAM + N_PHASE
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         st.step(state, i_last)
     torch.cuda.set_sync_debug_mode(0)
     syncs = sum("synchroniz" in str(x.message) for x in w)
-    print(f"[slice] per phase (median of {n_phase}, synchronised): build_frame "
+    print(f"[slice] per phase (median of {N_PHASE}, synchronised): build_frame "
           f"{statistics.median(ph_b):.2f} ms, track_frame_core {statistics.median(ph_t):.2f} ms;"
           f" host syncs per frame: {syncs}", flush=True)
 
@@ -477,11 +664,10 @@ def phase_slice(torch, cfg, dev, profile: bool = False):
     if d_id > 1e-2:
         fail(f"the stream drifted from the map's pose: {d_id:.3g}")
 
-    if profile:
-        profile_frame(torch, lambda: st.step(state, i_last))
+    activities = profile_frame(torch, lambda: st.step(state, i_last), profile)
 
     def compare(label, got, ref):
-        d = se3.log(se3.compose(got.Tcw.cpu(), se3.inverse(ref.Tcw.cpu()))).abs().max().item()
+        d = pose_diff(got.Tcw, ref.Tcw)
         same_mp = (got.mp_idx.cpu() == ref.mp_idx.cpu()).float().mean().item()
         same_bp = (got.bp_idx.cpu() == ref.bp_idx.cpu()).float().mean().item()
         print(f"[{label}] pose diff {d:.3g}, mp_idx equal {same_mp:.4f}, bp_idx equal "
@@ -503,7 +689,7 @@ def phase_slice(torch, cfg, dev, profile: bool = False):
     # the same frame's tracking on the CPU: the dense route the JAX package
     # runs off the TPU, against the card's fused route
     compare("cpu dense route", got, st.track(state, f, device=torch.device("cpu")))
-    return launches, N_STREAM / dt
+    return launches, N_STREAM / dt, activities
 
 
 def main() -> int:
@@ -511,7 +697,7 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels and hold them against their plain versions only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one frame with torch.profiler")
+                    help="also print the profiled frame's op table")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -536,11 +722,17 @@ def main() -> int:
 
     cfg = SystemConfig()
     rows = phase_kernels(torch, cfg, dev)
+    st = Stream(torch, cfg, dev, N_STREAM + N_PHASE + 2)
+    rows.update(phase_pose_and_hamming(torch, cfg, dev, st))
     launches = {}
     if not args.kernels_only:
-        launches, fps = phase_slice(torch, cfg, dev, args.profile)
+        launches, fps, activities = phase_slice(torch, cfg, dev, st, args.profile)
+        print(f"[slice] per frame: {fps:.2f} frames/s, {activities} device activities, "
+              f"{launches['pose_optimization'] / N_STREAM:g} pose kernel launches", flush=True)
     by_name = {"fast": "fast_detect_levels", "patch": "extract_patches",
-               "match_dual": "fused_projection_match_dual", "match": "fused_projection_match"}
+               "match_dual": "fused_projection_match_dual", "match": "fused_projection_match",
+               "pose_opt": "pose_optimization", "hamming": "hamming_matrix_packed",
+               "masked_match": "fused_masked_match"}
     kernels = []
     for key, fn_name in by_name.items():
         row = dict(rows[key], route="cuda", launches=launches.get(fn_name, 0))

@@ -1,5 +1,6 @@
-"""Fused projection matchers: the wrappers of kernel ``csrc/matcher.cu`` and
-their plain PyTorch versions.
+"""Fused projection matchers and packed Hamming kernels: the wrappers of
+kernels ``csrc/matcher.cu`` and ``csrc/hamming.cu`` and their plain PyTorch
+versions.
 
 Replace ``fishbirdeyevisualslam_tpu/ops/pallas_matcher.py``'s
 ``fused_projection_match`` and ``fused_projection_match_dual``.  Both take
@@ -11,7 +12,12 @@ Replace ``fishbirdeyevisualslam_tpu/ops/pallas_matcher.py``'s
 
 and match each query to the targets with |du|, |dv| <= radius and, with
 ``level_window``, an octave within [pred - 1, pred + 1]: exactly
-``matcher.match`` on that compatibility mask.  The wrappers launch the kernel
+``matcher.match`` on that compatibility mask.
+
+Also replace the same file's ``hamming_matrix_packed`` (the full Hamming
+matrix of packed (N, 8) 32-bit descriptor words) and ``fused_masked_match``
+(nearest packed descriptor within one square window, best, second-best and
+index), which no path of the tracker calls.  The wrappers launch the kernel
 for CUDA tensors and run the plain version for CPU tensors; there is no other
 fall-back.
 """
@@ -24,6 +30,7 @@ from typing import Optional
 import torch
 
 from fishbirdeyevisualslam_torch import _cuda
+from fishbirdeyevisualslam_torch.device import const
 from fishbirdeyevisualslam_torch.ops import matcher
 from fishbirdeyevisualslam_torch.ops.matcher import MatchResult
 
@@ -171,3 +178,124 @@ def fused_projection_match_dual(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius
 
 fused_projection_match.launches = 0
 fused_projection_match_dual.launches = 0
+
+
+# packed Hamming kernels (csrc/hamming.cu): descriptor words held as int32 bit
+# patterns, as convert.py holds them
+
+MATCH_QUERIES_PER_BLOCK = 128  # csrc/hamming.cu: M_THREADS
+MATCH_TILE = 256               # csrc/hamming.cu: M_TILE
+_POPCOUNT8 = tuple(bin(i).count("1") for i in range(256))
+
+
+def hamming_matrix_packed_plain(desc_a, desc_b):
+    """(Na, 8) x (Nb, 8) packed words -> (Na, Nb) f32 Hamming distances: XOR
+    of each word pair, popcount by a 256-entry byte table."""
+    table = const(_POPCOUNT8, torch.int32, desc_a.device)
+    na, nb = desc_a.shape[0], desc_b.shape[0]
+    acc = torch.zeros((na, nb), dtype=torch.int32, device=desc_a.device)
+    for w in range(desc_a.shape[1]):
+        x = torch.bitwise_xor(desc_a[:, w, None], desc_b[None, :, w]).contiguous()
+        acc += table[x.view(torch.uint8).long()].view(na, nb, 4).sum(-1, dtype=torch.int32)
+    return acc.to(torch.float32)
+
+
+def fused_masked_match_plain(desc_a, uv_a, desc_b, uv_b, valid_b, radius: float):
+    """The dense reference of the masked match: the Hamming matrix, the
+    square window ``matcher.window_mask`` over valid targets, best and
+    second-best per query (ties to the lowest column; the second-best is the
+    least distance over every other column).  Returns (best (Na,) f32,
+    second (Na,) f32, idx (Na,) int32), 1e9 and -1 where nothing passes."""
+    D = hamming_matrix_packed_plain(desc_a, desc_b)
+    ok = matcher.window_mask(uv_a.to(torch.float32), uv_b.to(torch.float32), float(radius))
+    D = torch.where(ok & valid_b[None, :], D, matcher.BIG)
+    best, idx = torch.min(D, dim=1)  # first occurrence of the minimum
+    col = torch.arange(D.shape[1], device=D.device)
+    second = torch.where(col[None, :] == idx[:, None], matcher.BIG, D).min(dim=1).values
+    return best, second, torch.where(best < matcher.BIG, idx.to(torch.int32), -1)
+
+
+def _check_words(what: str, dev, **tensors) -> None:
+    for name, t in tensors.items():
+        if dev.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: {name} must lie on the CUDA device {dev}")
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 8 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous (N, 8) int32 tensor of "
+                             "packed descriptor words")
+
+
+def _hamming_launch(desc_a, desc_b):
+    dev = desc_a.device
+    _check_words("hamming_matrix_packed", dev, desc_a=desc_a, desc_b=desc_b)
+    na, nb = desc_a.shape[0], desc_b.shape[0]
+    out = torch.empty((na, nb), dtype=torch.float32, device=dev)
+    fn = _cuda.load("hamming").hamming_matrix
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, ci, vp, vp]
+    fn.restype = ci
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(desc_a.data_ptr(), na, desc_b.data_ptr(), nb, out.data_ptr(), stream)
+    _cuda.check(err, "hamming_matrix")
+    return out
+
+
+def hamming_matrix_packed(desc_a, desc_b):
+    """(Na, 8) x (Nb, 8) packed words (int32 bit patterns) -> (Na, Nb) f32
+    Hamming distances."""
+    if desc_a.device.type == "cpu":
+        return hamming_matrix_packed_plain(desc_a, desc_b)
+    out = _hamming_launch(desc_a, desc_b)
+    hamming_matrix_packed.launches += 1
+    return out
+
+
+def _masked_launch(desc_a, uv_a, desc_b, uv_b, valid_b, radius: float):
+    dev = desc_a.device
+    _check_words("fused_masked_match", dev, desc_a=desc_a, desc_b=desc_b)
+    na, nb = desc_a.shape[0], desc_b.shape[0]
+    for name, t, shape, dtype in (("uv_a", uv_a, (na, 2), torch.float32),
+                                  ("uv_b", uv_b, (nb, 2), torch.float32),
+                                  ("valid_b", valid_b, (nb,), torch.bool)):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"fused_masked_match: {name} must be a contiguous {dtype} tensor "
+                             f"of shape {shape} on {dev}")
+    if nb > 1 << 20:
+        raise ValueError(f"fused_masked_match: at most {1 << 20} targets, got {nb}")
+    n_tiles = -(-nb // MATCH_TILE)
+    row_blocks = -(-max(na, 1) // MATCH_QUERIES_PER_BLOCK)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, min(n_tiles, -(-4 * sms // row_blocks)))
+    part1 = torch.empty((splits, na), dtype=torch.int32, device=dev)
+    part2 = torch.empty((splits, na), dtype=torch.int32, device=dev)
+    best = torch.empty((na,), dtype=torch.float32, device=dev)
+    second = torch.empty((na,), dtype=torch.float32, device=dev)
+    idx = torch.empty((na,), dtype=torch.int32, device=dev)
+    fn = _cuda.load("hamming").masked_match
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, vp, vp, vp, ci, ctypes.c_float, ci, vp, vp, vp, vp, vp, vp]
+    fn.restype = ci
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(desc_a.data_ptr(), uv_a.data_ptr(), na, desc_b.data_ptr(), uv_b.data_ptr(),
+                 valid_b.data_ptr(), nb, float(radius), splits, part1.data_ptr(),
+                 part2.data_ptr(), best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream)
+    _cuda.check(err, "masked_match")
+    return best, second, idx
+
+
+def fused_masked_match(desc_a, uv_a, desc_b, uv_b, valid_b, radius: float):
+    """Nearest packed descriptor within the square window |du|, |dv| <=
+    ``radius`` over valid targets, without the distance matrix.  Returns
+    (best (Na,) f32, second (Na,) f32, idx (Na,) int32) as
+    ``fused_masked_match_plain``."""
+    if desc_a.device.type == "cpu":
+        return fused_masked_match_plain(desc_a, uv_a, desc_b, uv_b, valid_b, radius)
+    out = _masked_launch(desc_a, uv_a, desc_b, uv_b, valid_b, radius)
+    fused_masked_match.launches += 1
+    return out
+
+
+hamming_matrix_packed.launches = 0
+fused_masked_match.launches = 0

@@ -6,7 +6,9 @@ callees (``TrackWithMotionModel``, ``TrackLocalMap`` and the bird matching of
 Two routes, as in the JAX package: on a CUDA device the projection matches go
 through the fused matcher kernels (``ops/cuda_matcher.py``), with candidate
 compaction; on the CPU through the dense ``matcher.match``.  Both give the
-same results by construction.  Compaction chooses between the compacted and
+same results by construction.  The two pose optimisations go through
+``solvers/cuda_pose_opt.py``: one kernel launch each on a CUDA device, the
+plain LM on the CPU.  Compaction chooses between the compacted and
 the full candidate axis on the host, from a count read back from the card —
 the host reads of a frame are those counts.
 """
@@ -27,7 +29,8 @@ from fishbirdeyevisualslam_torch.geometry import se3
 from fishbirdeyevisualslam_torch.ops import cuda_matcher, matcher
 from fishbirdeyevisualslam_torch.slam import map_state as ms
 from fishbirdeyevisualslam_torch.slam.frame import Frame, inv_level_sigma2_lut
-from fishbirdeyevisualslam_torch.solvers.pose_opt import BirdObs, FrontObs, pose_optimization
+from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+from fishbirdeyevisualslam_torch.solvers.pose_opt import BirdObs, FrontObs
 
 
 class TrackObs(NamedTuple):
@@ -279,9 +282,9 @@ def pose_opt_step(m: ms.MapState, f: Frame, assoc: TrackObs, cfg: SystemConfig, 
     bird = BirdObs(Xw=m.bp_pos[bid], Xc=f.bird_cam,
                    inv_sigma2=lut[f.bird_octave.clamp(0, n_lut - 1).long()],
                    valid=(assoc.bp_idx >= 0) & m.bp_valid[bid])
-    return pose_optimization(cfg.camera, cfg.ba, Tcw0, front, bird,
-                             prior_T=Tcw0 if prior_T is None else prior_T,
-                             prior_info=cfg.ba.pose_prior_info)
+    return cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, Tcw0, front, bird,
+                                           prior_T=Tcw0 if prior_T is None else prior_T,
+                                           prior_info=cfg.ba.pose_prior_info)
 
 
 def bird_only_view(f: Frame) -> Frame:

@@ -1,7 +1,9 @@
 """Parity of the port's pose optimisation (the plain, non-fused route) with
 the JAX package on the problem of ``tests/test_pallas_pose_opt.py``, at that
 test's bounds: pose within 1e-3 (max abs of the se3 log of the difference),
-inlier flips under 2%, ``n_inliers`` within 5."""
+inlier flips under 2%, ``n_inliers`` within 5.  Every problem here has the
+same shapes, so one JAX compile serves them all.  On the CPU the kernel's
+wrapper (``solvers/cuda_pose_opt.py``) runs the plain route."""
 
 import numpy as np
 import jax
@@ -15,6 +17,7 @@ from fishbirdeyevisualslam_tpu.solvers import pose_opt as j_po
 from fishbirdeyevisualslam_torch.config import SystemConfig
 from fishbirdeyevisualslam_torch.geometry import camera as t_cam
 from fishbirdeyevisualslam_torch.geometry import se3 as t_se3
+from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 from fishbirdeyevisualslam_torch.solvers import pose_opt as t_po
 
 torch.set_num_threads(2)
@@ -87,6 +90,32 @@ def test_matches_jax_with_prior(seed):
                                   jnp.asarray([0.01, 0, -0.01, 0.05, 0.02, 0], jnp.float32)))
     out, ref = _solve_both(T0, front, bird, prior_info=100.0)
     _check(out, ref)
+
+
+def test_bird_only_observations_match_jax():
+    """tests/test_pallas_pose_opt.py:73's case: the front starved to 4 valid
+    rows, the bird view carrying the pose (here at this module's shapes)."""
+    T_true, front, bird = make_problem(seed=5, outlier_frac=0.0)
+    front = front[:3] + (np.arange(300) < 4,)
+    out, ref = _solve_both(np.asarray(j_se3.identity()), front, bird)
+    _check(out, ref)
+    assert int(out.n_inliers) == 4
+    assert _pose_diff(out.Tcw.numpy(), T_true) < 2e-2
+
+
+@pytest.mark.parametrize("prior_info", [0.0, 100.0])
+def test_kernel_wrapper_on_cpu_is_the_plain_route(prior_info):
+    _, front, bird = make_problem(seed=6)
+    T0 = t_se3.exp(torch.tensor([0.01, 0.0, -0.02, 0.1, 0.05, -0.1]))
+    fr = t_po.FrontObs(*map(torch.from_numpy, front))
+    bi = t_po.BirdObs(*map(torch.from_numpy, bird))
+    n0 = cuda_pose_opt.pose_optimization.launches
+    got = cuda_pose_opt.pose_optimization(CFG.camera, CFG.ba, T0, fr, bi, None, prior_info)
+    ref = cuda_pose_opt.pose_optimization_plain(CFG.camera, CFG.ba, T0, fr, bi, T0, prior_info)
+    assert cuda_pose_opt.pose_optimization_plain is t_po.pose_optimization
+    assert cuda_pose_opt.pose_optimization.launches == n0   # nothing launched on the CPU
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
 
 
 def test_too_few_returns_seed():

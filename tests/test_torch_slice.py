@@ -30,6 +30,7 @@ from fishbirdeyevisualslam_torch import config as t_config
 from fishbirdeyevisualslam_torch import convert
 from fishbirdeyevisualslam_torch.slam import frame as t_frame
 from fishbirdeyevisualslam_torch.slam import tracking as t_tr
+from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 
 torch.set_num_threads(2)
 
@@ -129,8 +130,15 @@ def _slice_run(j_track):
     last = (torch.from_numpy(last_bp), torch.from_numpy(T_last), True)
     tf = convert.frame_from_numpy(fr, "cpu")
     tm = convert.map_state_from_numpy(m, "cpu")
-    tout = t_tr.track_frame_core(tm, tf, TCFG, *args, t_tr.bird_only_view(tf), *last,
-                                 device="cpu")
+    # record the pose optimisations the tracking core looks up in the wrapper module
+    pose_calls = []
+    wrapper = cuda_pose_opt.pose_optimization
+    cuda_pose_opt.pose_optimization = lambda *a, **k: pose_calls.append(a[2]) or wrapper(*a, **k)
+    try:
+        tout = t_tr.track_frame_core(tm, tf, TCFG, *args, t_tr.bird_only_view(tf), *last,
+                                     device="cpu")
+    finally:
+        cuda_pose_opt.pose_optimization = wrapper
     # the CUDA route with caps that make both compactions engage
     cfg_cap = TCFG.replace(tracking=dataclasses.replace(
         TCFG.tracking, local_match_compact_cap=P - 1, bird_match_compact_cap=PB - 1))
@@ -141,7 +149,7 @@ def _slice_run(j_track):
     tout_raw = t_tr.track_frame_core(tm, tf_raw, TCFG, *args, t_tr.bird_only_view(tf_raw),
                                      *last, device="cpu")
     return dict(fr=fr, m=m, jout=jout, tout=tout, tout_fused=tout_fused, tf_raw=tf_raw,
-                tout_raw=tout_raw)
+                tout_raw=tout_raw, pose_calls=pose_calls)
 
 
 def _pose_diff(a, b):
@@ -185,6 +193,13 @@ def test_track_map_updates(slice_run):
     same = got["bp_valid"] & ref["bp_valid"]
     np.testing.assert_array_equal(got["bp_desc"][same], ref["bp_desc"][same])
     np.testing.assert_allclose(got["bp_pos"][same], ref["bp_pos"][same], atol=1e-4)
+
+
+def test_pose_steps_go_through_the_wrapper_module(slice_run):
+    """Both pose optimisations of a frame are looked up in
+    ``solvers/cuda_pose_opt.py`` at each call, so that swapping the module's
+    attribute (as chip_smoke.py does for its plain reference) reaches them."""
+    assert len(slice_run["pose_calls"]) == 2
 
 
 def test_fused_route_equals_dense_route(slice_run):
