@@ -11,10 +11,12 @@ Phases, each printing its lines:
      fishbirdeyevisualslam_torch/csrc/ (one nvcc per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, with the device time of both (CUDA graph replays timed by
-     CUDA events): FAST, the patch gather and both projection matchers; the
-     fused pose optimisation on a stream frame's own inputs and on a
-     synthetic problem; the packed Hamming matrix and masked match at
-     scripts/bench_matcher.py's shapes;
+     CUDA events) and the kernel's own device time (the profiler's device
+     activities of the port's own kernels over the same replays): FAST, the
+     patch gather and both projection matchers; the fused pose optimisation
+     on a stream frame's own inputs and on a synthetic problem, timed at
+     (rounds, iters) = (1, 0), (1, 10) and (4, 10); the packed Hamming matrix
+     and masked match at scripts/bench_matcher.py's shapes;
   3. the per-frame slice (build_frame + track_frame_core) at full width
      with the default SystemConfig, a 32-frame stream (each frame under fresh
      sensor noise, the map and the last frame carried over), with each
@@ -30,8 +32,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -45,6 +50,7 @@ import numpy as np
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+SLEEP_CYCLES = 4_000_000  # ~2 ms of a spinning kernel ahead of each timed loop
 N_STREAM = 32
 N_PHASE = 8   # frames timed phase by phase after the stream
 NOISE = 2.0  # grey levels of per-frame sensor noise on the stream's images
@@ -57,11 +63,25 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(torch, fn, iters: int = 20) -> float:
+def own_kernel_names() -> list:
+    """The ``__global__`` functions of the port's CUDA sources: the device
+    activities that count as a kernel's own time."""
+    from fishbirdeyevisualslam_torch import _cuda
+    names = []
+    for src in sorted(_cuda.CSRC.glob("*.cu")):
+        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                            src.read_text())
+    return names
+
+
+def time_ms(torch, fn, iters: int = 20, own: bool = False):
     """Device time of ``fn`` in ms: its launches captured once in a CUDA graph,
     then the median of ``iters`` replays, each timed by CUDA events.  A plain
     call would time the host's Python between the events as well, which at
-    these sizes is longer than the kernels."""
+    these sizes is longer than the kernels.  With ``own``, returns (that time,
+    {kernel: ms per replay}) where the second sums the profiler's device time
+    of the port's own kernels over ``iters`` more replays: the wrapper's
+    preparation ops and allocations are in the first number only."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -73,6 +93,10 @@ def time_ms(torch, fn, iters: int = 20) -> float:
         fn()
     graph.replay()
     torch.cuda.synchronize()
+    # keep the card busy while the host enqueues the timed replays, so that a
+    # replay shorter than the host's launch latency is not timed with the card
+    # waiting for it
+    torch.cuda._sleep(SLEEP_CYCLES)
     evs = []
     for _ in range(iters):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -81,7 +105,41 @@ def time_ms(torch, fn, iters: int = 20) -> float:
         e.record()
         evs.append((s, e))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in evs)
+    ms = statistics.median(s.elapsed_time(e) for s, e in evs)
+    if not own:
+        return ms
+    from torch.profiler import ProfilerActivity, profile
+    pat = re.compile(r"\b(" + "|".join(own_kernel_names()) + r")\b")
+    for _attempt in range(3):  # a pass that saw none of the port's kernels is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                graph.replay()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        per = {}
+        for e in device:
+            m = pat.search(e.name)
+            if m:
+                per[m.group(1)] = per.get(m.group(1), 0.0) + e.device_time / 1e3 / iters
+        if per:
+            return ms, per
+        print(f"[kernel-own] the profiler saw {len(device)} device activities, none of the "
+              f"port's kernels: {sorted({e.name[:60] for e in device})[:5]}", flush=True)
+    fail("the profiler saw none of the port's kernels in the graph replays")
+
+
+def own_line(label: str, ms: float, per: dict) -> str:
+    parts = " + ".join(f"{k} {v:.4f}" for k, v in per.items())
+    return (f"[kernel-own] {label}: wrapper graph {ms:.4f} ms, kernels' own "
+            f"{sum(per.values()):.4f} ms ({parts})")
+
+
+def time_row(torch, row: dict, label: str, fn) -> None:
+    """A kernel row's wrapper graph time (``ms``) and its kernels' own time
+    (``kernel_ms``), with the line that reports both."""
+    row["ms"], per = time_ms(torch, fn, own=True)
+    row["kernel_ms"] = sum(per.values())
+    print(own_line(label, row["ms"], per), flush=True)
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -147,6 +205,7 @@ def phase_kernels(torch, cfg, dev):
     from fishbirdeyevisualslam_torch.slam.frame import build_frame
 
     rows = {}
+    timed = functools.partial(time_row, torch)
     front, bird = (torch.from_numpy(x).to(dev) for x in images(cfg, 0))
     orb = cfg.orb
     levels = (image_ops.build_pyramid(front, orb.n_levels, orb.scale_factor)
@@ -164,9 +223,9 @@ def phase_kernels(torch, cfg, dev):
     rows["fast"] = dict(
         name="fast_detect_levels", source="fishbirdeyevisualslam_torch/csrc/fast.cu",
         replaces="fishbirdeyevisualslam_tpu/ops/pallas_fast.py:125",
-        max_abs_err=err, ms=time_ms(torch, lambda: cuda_fast.fast_detect_levels(levels, *th)),
-        plain_ms=time_ms(torch, lambda: cuda_fast.fast_detect_levels_plain(levels, *th)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        max_abs_err=err, plain_ms=time_ms(torch, lambda: cuda_fast.fast_detect_levels_plain(
+            levels, *th)), bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    timed(rows["fast"], "fast_detect_levels", lambda: cuda_fast.fast_detect_levels(levels, *th))
     print(f"[kernel] FAST+NMS: {len(levels)} levels, {px} px, max_abs_err {err:.3g}, "
           f"{rows['fast']['ms']:.4f} ms (plain {rows['fast']['plain_ms']:.4f} ms, bound "
           f"{b_ms:.4f} ms by {b_by}; bytes {px * 12}, ops {px * 96})", flush=True)
@@ -188,9 +247,9 @@ def phase_kernels(torch, cfg, dev):
     rows["patch"] = dict(
         name="extract_patches", source="fishbirdeyevisualslam_torch/csrc/patch.cu",
         replaces="fishbirdeyevisualslam_tpu/ops/pallas_patch.py:50", max_abs_err=0.0,
-        ms=time_ms(torch, lambda: cuda_patch.extract_patches(atlas, yx, side)),
         plain_ms=time_ms(torch, lambda: cuda_patch.extract_patches_plain(atlas, yx, side)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    timed(rows["patch"], "extract_patches", lambda: cuda_patch.extract_patches(atlas, yx, side))
     print(f"[kernel] patch gather: N={n} side={side}, exact, {rows['patch']['ms']:.4f} ms "
           f"(plain {rows['patch']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
           f"bytes {nbytes}: {read_px} distinct atlas px read of {atlas.numel()})", flush=True)
@@ -245,10 +304,9 @@ def phase_kernels(torch, cfg, dev):
             name=label, source="fishbirdeyevisualslam_torch/csrc/matcher.cu",
             replaces=("fishbirdeyevisualslam_tpu/ops/pallas_matcher.py:335" if key == "match"
                       else "fishbirdeyevisualslam_tpu/ops/pallas_matcher.py:425"),
-            max_abs_err=0.0,
-            ms=time_ms(torch, lambda: fn(*prob, max_dist=th, **kw)),
-            plain_ms=time_ms(torch, lambda: plain(*prob, max_dist=th, **kw)),
+            max_abs_err=0.0, plain_ms=time_ms(torch, lambda: plain(*prob, max_dist=th, **kw)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        timed(rows[key], label, lambda: fn(*prob, max_dist=th, **kw))
         print(f"[kernel] {label}: {na}x{nb}, level window on/off, ratio None/0.8: exact "
               f"({n_ok} matches), {rows[key]['ms']:.4f} ms (plain {rows[key]['plain_ms']:.4f} "
               f"ms, bound {b_ms:.4f} ms by {b_by}; flops {flops:.3g}, bytes {nbytes})",
@@ -298,6 +356,7 @@ def phase_pose_and_hamming(torch, cfg, dev, st):
     from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 
     rows = {}
+    timed = functools.partial(time_row, torch)
     # the stream's first frame, with the inputs of both pose optimisations recorded
     calls = []
     wrapper = cuda_pose_opt.pose_optimization
@@ -352,14 +411,24 @@ def phase_pose_and_hamming(torch, cfg, dev, st):
     rows["pose_opt"] = dict(
         name="pose_optimization", source="fishbirdeyevisualslam_torch/csrc/pose_opt.cu",
         replaces="fishbirdeyevisualslam_tpu/solvers/pallas_pose_opt.py:387", max_abs_err=err,
-        ms=time_ms(torch, lambda: cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, T0, fo,
-                                                                   bo, pT, info)),
         plain_ms=time_ms(torch, lambda: cuda_pose_opt.pose_optimization_plain(
             cfg.camera, cfg.ba, T0, fo, bo, pT, info)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # the fixed cost and the cost per evaluation: the same call at (rounds, iters)
+    # = (1, 0), (1, 10) and the main path's (4, 10)
+    for r, i in ((1, 0), (1, 10), (cfg.ba.pose_rounds, cfg.ba.pose_iters)):
+        ba = dataclasses.replace(cfg.ba, pose_rounds=r, pose_iters=i)
+        label = f"pose_optimization (rounds, iters) = ({r}, {i}), {r * (i + 1)} evaluations"
+        if (r, i) == (cfg.ba.pose_rounds, cfg.ba.pose_iters):
+            timed(rows["pose_opt"], label, lambda: cuda_pose_opt.pose_optimization(
+                cfg.camera, ba, T0, fo, bo, pT, info))
+        else:
+            ms, per = time_ms(torch, lambda: cuda_pose_opt.pose_optimization(
+                cfg.camera, ba, T0, fo, bo, pT, info), own=True)
+            print(own_line(label, ms, per), flush=True)
     print(f"[kernel] pose_optimization: {rows['pose_opt']['ms']:.4f} ms (plain "
           f"{rows['pose_opt']['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}; ops {ops}, "
-          f"bytes {nbytes}; {evals} evaluations, each a block-wide reduction on one SM)",
+          f"bytes {nbytes}; {evals} evaluations, each reduced across a cluster of 8 SMs)",
           flush=True)
 
     # packed Hamming at scripts/bench_matcher.py's shapes
@@ -401,10 +470,11 @@ def phase_pose_and_hamming(torch, cfg, dev, st):
     rows["hamming"] = dict(
         name="hamming_matrix_packed", source="fishbirdeyevisualslam_torch/csrc/hamming.cu",
         replaces="fishbirdeyevisualslam_tpu/ops/pallas_matcher.py:43", max_abs_err=0.0,
-        ms=time_ms(torch, lambda: cuda_matcher.hamming_matrix_packed(da, db)),
         plain_ms=time_ms(torch, lambda: cuda_matcher.hamming_matrix_packed_plain(da, db)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: (256.0 - torch.matmul(pa, pb.T).float()) * 0.5))
+    timed(rows["hamming"], "hamming_matrix_packed",
+          lambda: cuda_matcher.hamming_matrix_packed(da, db))
     print(f"[kernel] hamming_matrix_packed: {rows['hamming']['ms']:.4f} ms (plain "
           f"{rows['hamming']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; +/-1 bf16 "
           f"matmul yardstick {rows['hamming']['library_ms']:.4f} ms)", flush=True)
@@ -416,11 +486,11 @@ def phase_pose_and_hamming(torch, cfg, dev, st):
     rows["masked_match"] = dict(
         name="fused_masked_match", source="fishbirdeyevisualslam_torch/csrc/hamming.cu",
         replaces="fishbirdeyevisualslam_tpu/ops/pallas_matcher.py:130", max_abs_err=0.0,
-        ms=time_ms(torch, lambda: cuda_matcher.fused_masked_match(da, uva, db, uvb, vb,
-                                                                  radius)),
         plain_ms=time_ms(torch, lambda: cuda_matcher.fused_masked_match_plain(
             da, uva, db, uvb, vb, radius)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    timed(rows["masked_match"], "fused_masked_match",
+          lambda: cuda_matcher.fused_masked_match(da, uva, db, uvb, vb, radius))
     print(f"[kernel] fused_masked_match: {rows['masked_match']['ms']:.4f} ms (plain "
           f"{rows['masked_match']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; ops "
           f"{ops}, bytes {nbytes})", flush=True)
@@ -617,6 +687,9 @@ def phase_slice(torch, cfg, dev, st, profile: bool = False):
             fail(f"{c.__name__} was never launched on the main path")
     if launches["pose_optimization"] != 2 * N_STREAM:
         fail(f"the pose kernel launched {launches['pose_optimization']} times, not 2 per frame")
+    if launches["fused_projection_match"] != 3 * N_STREAM:
+        fail(f"the single matcher launched {launches['fused_projection_match']} times, not 3 "
+             "per frame")
     sc = torch.stack([o.scalars for o in outs]).cpu().numpy()
     n_bp = torch.stack([o.map.n_bp for o in outs]).cpu().numpy()
     print(f"[slice] over the stream, min/max: n_motion {sc[:, 0].min()}/{sc[:, 0].max()}, "
@@ -737,8 +810,8 @@ def main() -> int:
     for key, fn_name in by_name.items():
         row = dict(rows[key], route="cuda", launches=launches.get(fn_name, 0))
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
-                                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")})
+                                            "max_abs_err", "ms", "kernel_ms", "plain_ms",
+                                            "bound_ms", "bound_by", "library_ms")})
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(json.dumps({"kernels": kernels}))

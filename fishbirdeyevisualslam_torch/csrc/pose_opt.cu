@@ -22,33 +22,61 @@
 // follow geometry/se3.py's operation order and small-angle branches.
 //
 // What bounds it on an H100: neither bytes (~115 KB of observations, read
-// from L1 after the first pass) nor operations (44 evaluations over up to
-// 2 x 2048 active observations at ~200 flops each, a third of a microsecond
-// at the f32 peak), but latency: 44 dependent block-wide reductions, each
-// followed by a 6x6 solve, on one SM.
+// once) nor operations (44 evaluations over up to 2 x 2048 active
+// observations at ~200 flops each, a third of a microsecond at the f32
+// peak), but latency: 44 strictly dependent evaluations, each a reduction of
+// 28 sums over every row, then a 6x6 solve and a retraction before the next
+// one can start (one block on one SM of an H100 took ~8.6 us per evaluation).
 //
-// Design: one block of THREADS threads.  Thread k owns observations k,
-// k + THREADS, ...; its front and bird inlier flags live in the output masks,
-// which it alone reads and writes.  An evaluation accumulates 28 partial sums
-// per thread, reduces them by warp shuffles, then across warps through
-// shared memory in a fixed order, into one of two shared buffers: the
-// current state and the candidate, so that accepting a step flips an index
-// instead of copying.  Every thread then solves the 6x6 system and retracts
-// redundantly: all read the same sums, so all take the same decisions, and
-// no broadcast is needed.  The TPU kernel's lane padding to 128 and its z = 1
-// fill of padded rows are gone: the loops run over the exact N and NB.
-// IEEE f32 throughout (no fast math): accept/reject is decided by err_c < err.
+// Design: a thread block cluster of CLUSTER blocks on CLUSTER SMs.
+//   * Rows.  The rows, front 0 .. N-1 then bird N .. N+NB-1, are cut into
+//     CLUSTER contiguous slices, one per block, over its ROW_THREADS row
+//     threads.  Each loads its first RPT rows (points, measurement,
+//     information, valid) into registers once per call and keeps their
+//     inlier flags in registers; rows beyond CLUSTER * ROW_THREADS * RPT are
+//     read from global memory at each evaluation and keep their flags in the
+//     output masks.  An inactive row is skipped on a register flag.
+//   * Reduction.  A row warp reduces its threads' 28 sums by a transposing
+//     butterfly (at each level a lane keeps half of its values and trades the
+//     other half: 31 shuffles, after which lane k holds sum k), and the
+//     block's warps are summed in a fixed order.  The block then writes its
+//     28 sums into every block's inbox with st.async, an asynchronous store
+//     into distributed shared memory that counts its bytes on the receiving
+//     block's mbarrier: no fence, no cluster-wide barrier.  A block's
+//     finishing threads wait on their own mbarrier for all CLUSTER x 28 sums
+//     and sum the inboxes in rank order: every block gets bit-identical sums
+//     and takes the same decisions, with no broadcast.  Inboxes and mbarriers
+//     alternate by the evaluation's parity.
+//   * Off the critical path.  A prior warp computes the prior's log of the
+//     pose under evaluation while the row warps work.  A speculation warp
+//     computes, meanwhile, the candidate that follows if this one is rejected
+//     (the step from the current pose on the current sums at 4 lam), so after
+//     a reject the next evaluation starts at once; after an accept every
+//     thread solves the 6x6 system (one reciprocal per column) and retracts.
+// IEEE f32 throughout (no fast math): accept/reject is decided by err_c < err,
+// and the fixed reduction order makes two launches on one input agree bit
+// for bit.  A cluster launch that the card refuses is reported, never
+// retried on fewer blocks.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
+constexpr int CLUSTER = 8;      // blocks: the portable cluster size
+constexpr int ROW_THREADS = 256;             // warps 0-7: the rows
+constexpr int ROW_WARPS = ROW_THREADS / 32;
+constexpr int PRIOR_WARP = ROW_WARPS;        // the prior's log of the pose being evaluated
+constexpr int SPEC_WARP = ROW_WARPS + 1;     // the candidate that follows a rejected step
+constexpr int THREADS = ROW_THREADS + 64;
+constexpr int RPT = 2;          // rows per thread held in registers
 constexpr int NH = 21;          // lower triangle of the 6x6 H, row by row
 constexpr int NS = NH + 6 + 1;  // H, J^T W e, error
+constexpr int NV = 32;          // NS padded to a warp for the butterfly
 
 struct Pose {
   float q[4];  // w, x, y, z
@@ -131,7 +159,7 @@ __device__ __forceinline__ void apply_iab(float a, float b, const float W[3][3],
 }
 
 // exp(xi) * T, normalised (se3.retract)
-__device__ Pose retract(const Pose& T, const float* xi) {
+__device__ __forceinline__ Pose retract(const Pose& T, const float* xi) {
   const float* om = xi;
   const float th2 = (om[0] * om[0] + om[1] * om[1]) + om[2] * om[2];
   const bool small = th2 < 1e-12f;
@@ -154,7 +182,7 @@ __device__ Pose retract(const Pose& T, const float* xi) {
 }
 
 // se3.log(T) -> (omega, upsilon)
-__device__ void se3_log(const Pose& T, float* xi) {
+__device__ __forceinline__ void se3_log(const Pose& T, float* xi) {
   const float w0 = T.q[0];
   const float s = (w0 == 0.0f) ? 1.0f : (w0 > 0.0f ? 1.0f : -1.0f);
   const float q[4] = {T.q[0] * s, T.q[1] * s, T.q[2] * s, T.q[3] * s};
@@ -189,8 +217,11 @@ __device__ __forceinline__ void rot_matrix(const float* q, float R[9]) {
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }  // j <= i
 
-__device__ void chol_solve6(const float* H, const float* g, float lam, float* x) {
-  float L[6][6];
+__device__ __forceinline__ void chol_solve6(const float* H, const float* g, float lam,
+                                            float* x) {
+  // one correctly rounded reciprocal per column, then products: the divisions
+  // of the plain version become multiplications, off the chain of square roots
+  float L[6][6], inv[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = H[tri(i, i)];
@@ -198,12 +229,13 @@ __device__ void chol_solve6(const float* H, const float* g, float lam, float* x)
 #pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[i][k] * L[i][k];
     L[i][i] = sqrtf(fmaxf(s, 1e-12f));
+    inv[i] = 1.0f / L[i][i];
 #pragma unroll
     for (int j = i + 1; j < 6; ++j) {
       float s2 = H[tri(j, i)];
 #pragma unroll
       for (int k = 0; k < i; ++k) s2 = s2 - L[j][k] * L[i][k];
-      L[j][i] = s2 / L[i][i];
+      L[j][i] = s2 * inv[i];
     }
   }
   float y[6];
@@ -212,18 +244,88 @@ __device__ void chol_solve6(const float* H, const float* g, float lam, float* x)
     float s = g[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
+    y[i] = s * inv[i];
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
 #pragma unroll
     for (int k = 5; k > i; --k) s = s - L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    x[i] = s * inv[i];
   }
 }
 
-// ---- one evaluation: normal equations + robustified error ---------------
+// ---- one row: residual, Jacobian, weighted normal-equation terms ---------
+
+// One observation as a thread holds it: a front row (X, u, v, info) or a bird
+// row (X, Xc, info); info already carries the view's weight.
+struct Row {
+  float X[3];
+  float m[3];  // front: u, v, unused; bird: Xc
+  float info;
+  bool bird, valid;
+};
+
+struct Obs {
+  const float* fXw; const float* fuv; const float* finfo; const bool* fvalid; int n;
+  const float* bXw; const float* bXc; const float* binfo; const bool* bvalid; int nb;
+  bool* fin; bool* bin;
+};
+
+__device__ __forceinline__ Row load_row(const Params& p, const Obs& o, int i) {
+  Row r;
+  r.bird = i >= o.n;
+  if (!r.bird) {
+    for (int k = 0; k < 3; ++k) r.X[k] = o.fXw[3 * i + k];
+    r.m[0] = o.fuv[2 * i]; r.m[1] = o.fuv[2 * i + 1]; r.m[2] = 0.0f;
+    r.info = o.finfo[i] * p.w_front;
+    r.valid = o.fvalid[i];
+  } else {
+    const int j = i - o.n;
+    for (int k = 0; k < 3; ++k) {
+      r.X[k] = o.bXw[3 * j + k];
+      r.m[k] = o.bXc[3 * j + k];
+    }
+    r.info = o.binfo[j] * p.w_bird;
+    r.valid = o.bvalid[j];
+  }
+  return r;
+}
+
+// the row's inlier flag where the thread does not hold it: the output mask
+__device__ __forceinline__ bool* mask_of(const Obs& o, int i) {
+  return i < o.n ? o.fin + i : o.bin + (i - o.n);
+}
+
+__device__ __forceinline__ void transform(const float R[9], const float* t, const float* X,
+                                          float* pc) {
+  pc[0] = ((R[0] * X[0] + R[1] * X[1]) + R[2] * X[2]) + t[0];
+  pc[1] = ((R[3] * X[0] + R[4] * X[1]) + R[5] * X[2]) + t[1];
+  pc[2] = ((R[6] * X[0] + R[7] * X[1]) + R[8] * X[2]) + t[2];
+}
+
+// a front row's reprojection error at the camera-frame point pc; iz = 1 / z
+__device__ __forceinline__ void front_error(const Params& p, const float* pc, const Row& r,
+                                            float* iz, float* e) {
+  const float z = fabsf(pc[2]) < 1e-6f ? 1e-6f : pc[2];
+  *iz = 1.0f / z;
+  e[0] = r.m[0] - (p.fx * pc[0] * *iz + p.cx);
+  e[1] = r.m[1] - (p.fy * pc[1] * *iz + p.cy);
+}
+
+// raw chi2 of a row at (R, t)
+__device__ __forceinline__ float row_chi2(const Params& p, const float R[9], const float* t,
+                                          const Row& r) {
+  float pc[3];
+  transform(R, t, r.X, pc);
+  if (!r.bird) {
+    float iz, e[2];
+    front_error(p, pc, r, &iz, e);
+    return (e[0] * e[0] + e[1] * e[1]) * r.info;
+  }
+  const float e0 = r.m[0] - pc[0], e1 = r.m[1] - pc[1], e2 = r.m[2] - pc[2];
+  return ((e0 * e0 + e1 * e1) + e2 * e2) * r.info;
+}
 
 __device__ __forceinline__ void add_rows(float* acc, const float (*J)[6], int rows,
                                          const float* e, float w) {
@@ -252,115 +354,118 @@ __device__ __forceinline__ float irls(float chi2, float info, const Params& p, b
   return h * info;
 }
 
-struct Obs {
-  const float* fXw; const float* fuv; const float* finfo; int n;
-  const float* bXw; const float* bXc; const float* binfo; int nb;
-  bool* fact; bool* bact;
-};
-
-__device__ __forceinline__ void front_residual(const Params& p, const float R[9], const float* t,
-                                              const Obs& o, int i, float* pc, float* z,
-                                              float* e, float* chi2) {
-  const float X0 = o.fXw[3 * i], X1 = o.fXw[3 * i + 1], X2 = o.fXw[3 * i + 2];
-  pc[0] = ((R[0] * X0 + R[1] * X1) + R[2] * X2) + t[0];
-  pc[1] = ((R[3] * X0 + R[4] * X1) + R[5] * X2) + t[1];
-  pc[2] = ((R[6] * X0 + R[7] * X1) + R[8] * X2) + t[2];
-  *z = fabsf(pc[2]) < 1e-6f ? 1e-6f : pc[2];
-  e[0] = o.fuv[2 * i] - (p.fx * pc[0] / *z + p.cx);
-  e[1] = o.fuv[2 * i + 1] - (p.fy * pc[1] / *z + p.cy);
-  *chi2 = (e[0] * e[0] + e[1] * e[1]) * (o.finfo[i] * p.w_front);
-}
-
-__device__ __forceinline__ void bird_residual(const Params& p, const float R[9], const float* t,
-                                             const Obs& o, int i, float* pc, float* e,
-                                             float* chi2) {
-  const float X0 = o.bXw[3 * i], X1 = o.bXw[3 * i + 1], X2 = o.bXw[3 * i + 2];
-  pc[0] = ((R[0] * X0 + R[1] * X1) + R[2] * X2) + t[0];
-  pc[1] = ((R[3] * X0 + R[4] * X1) + R[5] * X2) + t[1];
-  pc[2] = ((R[6] * X0 + R[7] * X1) + R[8] * X2) + t[2];
-  for (int k = 0; k < 3; ++k) e[k] = o.bXc[3 * i + k] - pc[k];
-  *chi2 = ((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]) * (o.binfo[i] * p.w_bird);
-}
-
-// Evaluate at T into out[NS] (shared): sum of J^T W J (lower triangle),
-// -(J^T W e) and the robust error over the active observations, plus the
-// prior's terms.  Ends with a barrier, after which every thread may read out.
-__device__ void evaluate(const Params& p, const Obs& o, const Pose& T, const Pose& prior_inv,
-                         bool huber, float (*part)[NS], float* out) {
-  float acc[NS];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) acc[k] = 0.0f;
-  float R[9];
-  rot_matrix(T.q, R);
-  for (int i = threadIdx.x; i < o.n; i += THREADS) {
-    if (!o.fact[i]) continue;
-    float pc[3], z, e[2], chi2;
-    front_residual(p, R, T.t, o, i, pc, &z, e, &chi2);
-    const float info = o.finfo[i] * p.w_front;
-    const float a = p.fx / z, b = p.fy / z;
-    const float c = -p.fx * pc[0] / (z * z), d = -p.fy * pc[1] / (z * z);
+// the row's terms at (R, t) added to acc[NS]
+__device__ __forceinline__ void add_row(const Params& p, const float R[9], const float* t,
+                                        const Row& r, bool huber, float* acc) {
+  float pc[3];
+  transform(R, t, r.X, pc);
+  if (!r.bird) {
+    float iz, e[2];
+    front_error(p, pc, r, &iz, e);
+    const float chi2 = (e[0] * e[0] + e[1] * e[1]) * r.info;
+    const float a = p.fx * iz, b = p.fy * iz;
+    const float c = -a * pc[0] * iz, d = -b * pc[1] * iz;
     const float J[2][6] = {{-(c * pc[1]), -(a * pc[2] - c * pc[0]), a * pc[1], -a, 0.0f, -c},
                            {b * pc[2] - d * pc[1], d * pc[0], -(b * pc[0]), 0.0f, -b, -d}};
-    add_rows(acc, J, 2, e, irls(chi2, info, p, huber));
+    add_rows(acc, J, 2, e, irls(chi2, r.info, p, huber));
     acc[NS - 1] += robust(chi2, p, huber);
-  }
-  for (int i = threadIdx.x; i < o.nb; i += THREADS) {
-    if (!o.bact[i]) continue;
-    float pc[3], e[3], chi2;
-    bird_residual(p, R, T.t, o, i, pc, e, &chi2);
-    const float info = o.binfo[i] * p.w_bird;
+  } else {
+    float e[3];
+    for (int k = 0; k < 3; ++k) e[k] = r.m[k] - pc[k];
+    const float chi2 = ((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]) * r.info;
     // d(Xc - T X)/dxi = -[-[p]x | I] = [[p]x | -I]
     const float J[3][6] = {{0.0f, -pc[2], pc[1], -1.0f, 0.0f, 0.0f},
                            {pc[2], 0.0f, -pc[0], 0.0f, -1.0f, 0.0f},
                            {-pc[1], pc[0], 0.0f, 0.0f, 0.0f, -1.0f}};
-    add_rows(acc, J, 3, e, irls(chi2, info, p, huber));
+    add_rows(acc, J, 3, e, irls(chi2, r.info, p, huber));
     acc[NS - 1] += robust(chi2, p, huber);
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) part[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < NS) {
-    const int k = threadIdx.x;
-    float s = 0.0f;
-    for (int w = 0; w < WARPS; ++w) s += part[w][k];
-    float e[6];
-    se3_log(compose(T, prior_inv), e);
-    if (k < NH) {
-      const bool diag = (k == 0 || k == 2 || k == 5 || k == 9 || k == 14 || k == 20);
-      if (diag) s = s + p.prior_info;
-    } else if (k < NH + 6) {
-      s = -s - p.prior_info * e[k - NH];
-    } else {
-      const float ee = ((((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]) + e[3] * e[3])
-                        + e[4] * e[4]) + e[5] * e[5];
-      s = s + p.prior_info * ee;
-    }
-    out[k] = s;
-  }
-  __syncthreads();
 }
 
-// re-gate the thread's observations at T on the raw chi2
-__device__ void regate(const Params& p, const Obs& o, const bool* fvalid, const bool* bvalid,
-                       const Pose& T) {
-  float R[9];
-  rot_matrix(T.q, R);
-  for (int i = threadIdx.x; i < o.n; i += THREADS) {
-    float pc[3], z, e[2], chi2;
-    front_residual(p, R, T.t, o, i, pc, &z, e, &chi2);
-    o.fact[i] = fvalid[i] && chi2 <= p.gate_f;
+// ---- the cluster-wide evaluation -----------------------------------------
+
+struct Shared {
+  uint64_t full[2];                  // by evaluation parity: every block's sums and sh.pe are in
+  float part[ROW_WARPS][NV];         // per-warp sums
+  float inbox[2][CLUSTER][NS];       // every block's sums, by evaluation parity (written remotely)
+  float total[2][NS];                // the cluster's sums: current state and candidate
+  float pe[7];                       // prior_terms of the pose being evaluated
+  float spec[2][8];                  // the candidate after a rejected step (pose, finite),
+                                     // by evaluation parity
+  int n_valid, n_in;                 // this block's valid front rows; front inliers at the end
+};
+
+// The rows a row thread owns: combined row indices begin, begin + ROW_THREADS,
+// ... < end.
+struct Slice {
+  int begin, end;
+  Row reg[RPT];  // the first RPT of them
+  bool act[RPT];
+};
+
+// The prior's terms at the candidate pose T: e = log(T prior^-1) and |e|^2.
+__device__ __forceinline__ void prior_terms(const Pose& T, const Pose& prior_inv, float* e) {
+  se3_log(compose(T, prior_inv), e);
+  e[6] = ((((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]) + e[3] * e[3]) + e[4] * e[4])
+         + e[5] * e[5];
+}
+
+// Warp reduction of v[NV] by a transposing butterfly: at offset o a lane keeps
+// the half of v[0 .. 2o) its lane bit o selects and receives its partner's
+// copy of that half.  Afterwards v[0] of lane k is the warp's sum of v[k].
+__device__ __forceinline__ float warp_transpose_sum(float* v, int lane) {
+#pragma unroll
+  for (int o = NV / 2; o >= 1; o >>= 1) {
+    const bool upper = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < o; ++i) {
+      const float send = upper ? v[i] : v[i + o];
+      const float keep = upper ? v[i + o] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
   }
-  for (int i = threadIdx.x; i < o.nb; i += THREADS) {
-    float pc[3], e[3], chi2;
-    bird_residual(p, R, T.t, o, i, pc, e, &chi2);
-    o.bact[i] = bvalid[i] && chi2 <= p.gate_b;
-  }
+  return v[0];
+}
+
+// mbarriers in shared memory, filled across the cluster by st.async
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+// arrive on bar, whose phase then also waits for `bytes` more
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// store v into block `rank`'s copy of *slot asynchronously; the store counts
+// 4 bytes on block `rank`'s copy of bar when it lands
+__device__ __forceinline__ void st_async_at(float* slot, float v, uint64_t* bar, int rank) {
+  asm volatile("{\n.reg .b32 ra, rb;\n"
+               "mapa.shared::cluster.u32 ra, %0, %3;\n"
+               "mapa.shared::cluster.u32 rb, %2, %3;\n"
+               "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [ra], %1, [rb];\n}"
+               :: "r"(smem_u32(slot)), "r"(__float_as_uint(v)), "r"(smem_u32(bar)), "r"(rank)
+               : "memory");
+}
+// wait until the phase of parity `parity` of bar has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// a barrier of the row warps only
+__device__ __forceinline__ void rows_barrier() {
+  asm volatile("bar.sync 1, %0;" :: "n"(ROW_THREADS) : "memory");
 }
 
 __device__ __forceinline__ Pose load_pose(const float* v) {
@@ -370,62 +475,211 @@ __device__ __forceinline__ Pose load_pose(const float* v) {
   return T;
 }
 
-__global__ void __launch_bounds__(THREADS)
-pose_opt_kernel(Params p, const float* __restrict__ T0v, const float* __restrict__ Tpv,
-                const float* __restrict__ fXw, const float* __restrict__ fuv,
-                const float* __restrict__ finfo, const bool* __restrict__ fvalid, int n,
-                const float* __restrict__ bXw, const float* __restrict__ bXc,
-                const float* __restrict__ binfo, const bool* __restrict__ bvalid, int nb,
-                float* __restrict__ Tout, bool* fin, bool* bin, int* n_inliers) {
-  __shared__ float part[WARPS][NS];
-  __shared__ float buf[2][NS];
-  __shared__ int n_valid, n_in;  // valid front rows; front inliers at the end
-  const Obs o{fXw, fuv, finfo, n, bXw, bXc, binfo, nb, fin, bin};
-  if (threadIdx.x == 0) n_valid = n_in = 0;
-  int count = 0;
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    fin[i] = fvalid[i];
-    count += fvalid[i] ? 1 : 0;
+// The candidate of a step from T on the sums Hg at damping lam, and whether
+// the step was finite.  Not inlined: one copy serves every caller.
+struct Cand {
+  Pose T;
+  bool finite;
+};
+
+__device__ __noinline__ Cand step(Pose T, const float* Hg, float lam) {
+  float dx[6];
+  chol_solve6(Hg, Hg + NH, lam, dx);
+  Cand c;
+  c.finite = true;
+  for (int k = 0; k < 6; ++k) c.finite = c.finite && isfinite(dx[k]);
+  c.T = retract(T, dx);
+  return c;
+}
+
+__device__ __forceinline__ float next_lam(float lam, bool accept) {
+  return fminf(fmaxf(accept ? lam * 0.5f : lam * 4.0f, 1e-10f), 1e6f);
+}
+
+// Evaluation number ev at Tc into sh.total[slot]: the sums of J^T W J (lower
+// triangle), -(J^T W e) and the robust error over the active rows of the
+// whole cluster, plus the prior's terms.  Meanwhile the prior warp computes
+// those terms and, with `spec`, the speculation warp computes the candidate
+// that follows if Tc is rejected (a step from T on sh.total[1 - slot] at
+// next_lam(lam, false)) into sh.spec[ev & 1].  Each block writes its sums into
+// every block's inbox by st.async, counted on that block's full[ev & 1]; a
+// block's finishing threads wait there for all CLUSTER x NS sums and their
+// own prior warp.  Ends with a block barrier, after which every thread may
+// read sh.total[slot] and sh.spec[ev & 1], the same values in every block.
+__device__ __forceinline__ void evaluate(const Params& p, const Obs& o, const Slice& s,
+                                         const Pose& Tc, const Pose& prior_inv, bool huber,
+                                         int ev, int slot, bool spec, const Pose& T,
+                                         float lam, Shared& sh, cg::cluster_group& cluster) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int parity = ev & 1;
+  if (warp == PRIOR_WARP) {
+    float pe[7];
+    prior_terms(Tc, prior_inv, pe);
+    if (lane < 7) sh.pe[lane] = pe[lane];
+    // the barrier's phase also waits for every block's NS sums
+    if (lane == 0) mbar_arrive_expect(&sh.full[parity], CLUSTER * NS * 4);
+    else mbar_arrive(&sh.full[parity]);
+  } else if (warp == SPEC_WARP) {
+    if (spec) {
+      const Cand c = step(T, sh.total[1 - slot], next_lam(lam, false));
+      float* out = sh.spec[parity];
+      if (lane < 4) out[lane] = c.T.q[lane];
+      else if (lane < 7) out[lane] = c.T.t[lane - 4];
+      else if (lane == 7) out[7] = c.finite ? 1.0f : 0.0f;
+    }
+  } else {
+    float acc[NV];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[k] = 0.0f;
+    float R[9];
+    rot_matrix(Tc.q, R);
+#pragma unroll
+    for (int k = 0; k < RPT; ++k)
+      if (s.act[k]) add_row(p, R, Tc.t, s.reg[k], huber, acc);
+    for (int i = s.begin + RPT * ROW_THREADS; i < s.end; i += ROW_THREADS)
+      if (*mask_of(o, i)) add_row(p, R, Tc.t, load_row(p, o, i), huber, acc);
+
+    sh.part[warp][lane] = warp_transpose_sum(acc, lane);
+    rows_barrier();
+    const int k = threadIdx.x;
+    if (k < NS) {
+      // the block's sum, pushed into every block's inbox
+      float b = 0.0f;
+      for (int w = 0; w < ROW_WARPS; ++w) b += sh.part[w][k];
+      const int rank = (int)cluster.block_rank();
+      for (int r = 0; r < CLUSTER; ++r)
+        st_async_at(&sh.inbox[parity][rank][k], b, &sh.full[parity], r);
+      mbar_wait(&sh.full[parity], (ev >> 1) & 1);
+      float v = 0.0f;
+      for (int r = 0; r < CLUSTER; ++r) v += sh.inbox[parity][r][k];
+      if (k < NH) {
+        const bool diag = (k == 0 || k == 2 || k == 5 || k == 9 || k == 14 || k == 20);
+        if (diag) v = v + p.prior_info;
+      } else if (k < NH + 6) {
+        v = -v - p.prior_info * sh.pe[k - NH];
+      } else {
+        v = v + p.prior_info * sh.pe[6];
+      }
+      sh.total[slot][k] = v;
+    }
   }
-  for (int i = threadIdx.x; i < nb; i += THREADS) bin[i] = bvalid[i];
   __syncthreads();
-  atomicAdd(&n_valid, count);
+}
+
+// re-gate the thread's rows at T on the raw chi2
+__device__ __forceinline__ void regate(const Params& p, const Obs& o, Slice& s, const Pose& T) {
+  float R[9];
+  rot_matrix(T.q, R);
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const Row& r = s.reg[k];
+    s.act[k] = r.valid && row_chi2(p, R, T.t, r) <= (r.bird ? p.gate_b : p.gate_f);
+  }
+  for (int i = s.begin + RPT * ROW_THREADS; i < s.end; i += ROW_THREADS) {
+    const Row r = load_row(p, o, i);
+    *mask_of(o, i) = r.valid && row_chi2(p, R, T.t, r) <= (r.bird ? p.gate_b : p.gate_f);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+pose_opt_kernel(Params p, const float* __restrict__ T0v, const float* __restrict__ Tpv, Obs o,
+                float* __restrict__ Tout, int* n_inliers) {
+  __shared__ Shared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int m = o.n + o.nb;
+  const int per = (m + CLUSTER - 1) / CLUSTER;
+
+  // a row thread's rows: registers for the first RPT, the masks for the rest;
+  // the prior and speculation warps own none
+  Slice s;
+  s.begin = threadIdx.x < ROW_THREADS ? min(m, rank * per) + (int)threadIdx.x : m;
+  s.end = min(m, (rank + 1) * per);
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int i = s.begin + k * ROW_THREADS;
+    const bool own = i < s.end;
+    s.reg[k] = own ? load_row(p, o, i) : Row{};
+    s.reg[k].valid = own && s.reg[k].valid;
+    s.act[k] = s.reg[k].valid;
+    count += (s.act[k] && !s.reg[k].bird) ? 1 : 0;
+  }
+  for (int i = s.begin + RPT * ROW_THREADS; i < s.end; i += ROW_THREADS) {
+    const bool v = i < o.n ? o.fvalid[i] : o.bvalid[i - o.n];
+    *mask_of(o, i) = v;
+    count += (v && i < o.n) ? 1 : 0;
+  }
+  if (threadIdx.x == 0) {
+    sh.n_valid = sh.n_in = 0;
+    // per evaluation: the prior warp's lanes, and the bytes of every block's sums
+    for (int i = 0; i < 2; ++i) mbar_init(&sh.full[i], 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (count) atomicAdd(&sh.n_valid, count);
+  cluster.sync();  // every block runs, with its barriers set, before any push
 
   const Pose T0 = load_pose(T0v);
   const Pose prior_inv = inverse(load_pose(Tpv));
   Pose T = T0;
+  int ev = 0;  // evaluations so far
   for (int round = 0; round < p.rounds; ++round) {
     const bool huber = round < 3;
     if (round < p.rounds - 1) T = T0;
-    int cur = 0;
-    evaluate(p, o, T, prior_inv, huber, part, buf[cur]);
+    int cur = 0;  // the slot of the sums at T
     float lam = 1e-4f;
-    for (int it = 0; it < p.iters; ++it) {
-      float dx[6];
-      chol_solve6(buf[cur], buf[cur] + NH, lam, dx);
-      bool finite = true;
-      for (int k = 0; k < 6; ++k) finite = finite && isfinite(dx[k]);
-      const Pose Tc = retract(T, dx);
-      evaluate(p, o, Tc, prior_inv, huber, part, buf[1 - cur]);
-      const bool accept = (buf[1 - cur][NS - 1] < buf[cur][NS - 1]) && finite;
-      if (accept) {
-        T = Tc;
-        cur = 1 - cur;
+    Cand c{T, false};
+    // it = -1 evaluates T itself; it >= 0 the candidate of step it
+    for (int it = -1; it < p.iters; ++it) {
+      const bool first = it < 0, more = it + 1 < p.iters;
+      const int ep = ev & 1;
+      evaluate(p, o, s, c.T, prior_inv, huber, ev++, first ? cur : 1 - cur, !first && more, T,
+               lam, sh, cluster);
+      bool accept = false;
+      if (!first) {
+        accept = (sh.total[1 - cur][NS - 1] < sh.total[cur][NS - 1]) && c.finite;
+        lam = next_lam(lam, accept);
+        if (accept) {
+          T = c.T;
+          cur = 1 - cur;
+        }
       }
-      lam = fminf(fmaxf(accept ? lam * 0.5f : lam * 4.0f, 1e-10f), 1e6f);
+      if (!more) continue;
+      if (first || accept) {
+        c = step(T, sh.total[cur], lam);
+      } else {  // the speculation warp's candidate
+        c.T = load_pose(sh.spec[ep]);
+        c.finite = sh.spec[ep][7] != 0.0f;
+      }
     }
-    regate(p, o, fvalid, bvalid, T);
+    regate(p, o, s, T);
   }
+
   count = 0;
-  for (int i = threadIdx.x; i < n; i += THREADS) count += fin[i] ? 1 : 0;
-  atomicAdd(&n_in, count);
-  __syncthreads();
-  if (threadIdx.x == 0) {
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int i = s.begin + k * ROW_THREADS;
+    if (i < s.end) *mask_of(o, i) = s.act[k];
+    count += (s.act[k] && !s.reg[k].bird) ? 1 : 0;
+  }
+  for (int i = s.begin + RPT * ROW_THREADS; i < o.n && i < s.end; i += ROW_THREADS)
+    count += o.fin[i] ? 1 : 0;
+  if (count) atomicAdd(&sh.n_in, count);
+  cluster.sync();  // every block's counts are final
+  if (rank == 0 && threadIdx.x == 0) {
+    int n_valid = 0, n_in = 0;
+    for (int r = 0; r < CLUSTER; ++r) {
+      const Shared* rs = cluster.map_shared_rank(&sh, r);
+      n_valid += rs->n_valid;
+      n_in += rs->n_in;
+    }
     const Pose& Tf = n_valid >= 3 ? T : T0;
     for (int i = 0; i < 4; ++i) Tout[i] = Tf.q[i];
     for (int i = 0; i < 3; ++i) Tout[4 + i] = Tf.t[i];
     *n_inliers = n_in;
   }
+  cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
 // retract(T_i, dx_i) and log(T_i * Tp_i^-1) for n poses: the kernel's own
@@ -444,8 +698,8 @@ __global__ void se3_check_kernel(const float* T, const float* dx, const float* T
 
 // T0, Tprior (7,) f32; front Xw (n, 3), uv (n, 2), info (n,) f32, valid (n,)
 // bool; bird Xw, Xc (nb, 3), info (nb,) f32, valid (nb,) bool.  Writes the
-// pose (7,), both inlier masks and the front inlier count.  Returns
-// cudaGetLastError().
+// pose (7,), both inlier masks and the front inlier count.  One cluster of
+// CLUSTER blocks.  Returns cudaGetLastError(), or the launch's own error.
 extern "C" int pose_opt(const float* T0, const float* Tprior, const float* fXw,
                         const float* fuv, const float* finfo, const bool* fvalid, int n,
                         const float* bXw, const float* bXc, const float* binfo,
@@ -456,9 +710,22 @@ extern "C" int pose_opt(const float* T0, const float* Tprior, const float* fXw,
   if (n < 0 || nb < 0 || rounds < 1 || iters < 0) return (int)cudaErrorInvalidValue;
   const Params p{fx, fy, cx, cy, w_front, w_bird, delta, d2, two_delta, gate_f, gate_b,
                  prior_info, rounds, iters};
-  pose_opt_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
-      p, T0, Tprior, fXw, fuv, finfo, fvalid, n, bXw, bXc, binfo, bvalid, nb, Tout, fin, bin,
-      n_inliers);
+  const Obs o{fXw, fuv, finfo, fvalid, n, bXw, bXc, binfo, bvalid, nb, fin, bin};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, pose_opt_kernel, p, T0, Tprior, o, Tout,
+                                             n_inliers);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

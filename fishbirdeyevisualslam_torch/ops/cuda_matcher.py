@@ -34,8 +34,12 @@ from fishbirdeyevisualslam_torch.device import const
 from fishbirdeyevisualslam_torch.ops import matcher
 from fishbirdeyevisualslam_torch.ops.matcher import MatchResult
 
-ROWS_PER_BLOCK = 64   # query rows per block (csrc/matcher.cu: TA)
-COLS_PER_TILE = 32    # target columns per tile (csrc/matcher.cu: TB)
+ROWS_PER_BLOCK = 64   # dual matcher: query rows per block (csrc/matcher.cu: TA)
+COLS_PER_TILE = 32    # dual matcher: target columns per tile (csrc/matcher.cu: TB)
+SINGLE_ROWS = 128     # single matcher: query rows per block (csrc/matcher.cu: S_BM)
+SINGLE_COLS = 64      # single matcher: target columns per tile (csrc/matcher.cu: S_BN)
+# dtypes the single matcher reads octave and predicted level in (csrc/matcher.cu: NumType)
+_NUM_TYPES = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
 
 
 def _radius(radius_b, n: int, dev):
@@ -145,6 +149,76 @@ def _launch(dual, pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, va
     return MatchResult(*outs)
 
 
+def _launch_single(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
+                   max_dist, level_window, ratio) -> MatchResult:
+    """The single matcher's launch: checks, outputs and scratch, nothing more;
+    the kernel reads the gate's inputs with their own strides and dtypes."""
+    dev = pm1_a.device
+    na, nb = pm1_a.shape[0], pm1_b.shape[0]
+    tensors = [("pm1_a", pm1_a), ("uv_a", uv_a), ("oct_a", oct_a), ("valid_a", valid_a),
+               ("pm1_b", pm1_b), ("uv_b", uv_b), ("pred_b", pred_b), ("valid_b", valid_b)]
+    if isinstance(radius_b, torch.Tensor):
+        tensors.append(("radius_b", radius_b))
+    for name, t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"projection match: {name} must lie on the CUDA device {dev}")
+    for name, t in (("pm1_a", pm1_a), ("pm1_b", pm1_b)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or t.shape[1] != 256 \
+                or not t.is_contiguous() or t.data_ptr() % 32:
+            raise ValueError(f"projection match: {name} must be a contiguous, 32-byte aligned "
+                             "(N, 256) bfloat16 tensor")
+    if nb > 65536:
+        raise ValueError(f"projection match: at most 65536 targets, got {nb}")
+    for name, t, shape, dtypes in (
+            ("uv_a", uv_a, (na, 2), (torch.float32,)), ("uv_b", uv_b, (nb, 2), (torch.float32,)),
+            ("oct_a", oct_a, (na,), _NUM_TYPES), ("pred_b", pred_b, (nb,), _NUM_TYPES),
+            ("valid_a", valid_a, (na,), (torch.bool,)), ("valid_b", valid_b, (nb,), (torch.bool,))):
+        if tuple(t.shape) != shape or t.dtype not in dtypes:
+            raise ValueError(f"projection match: {name} must have shape {shape} and a dtype of "
+                             f"{[str(d) for d in dtypes]}, got {tuple(t.shape)} {t.dtype}")
+    r_ptr, r_stride, r_value = 0, 0, 0.0
+    if isinstance(radius_b, torch.Tensor):
+        if radius_b.dtype != torch.float32 or (radius_b.numel() != 1
+                                               and tuple(radius_b.shape) != (nb,)):
+            raise ValueError("projection match: radius_b must be a float32 tensor of shape "
+                             "(Nb,) or of one element, or a number")
+        r_ptr = radius_b.data_ptr()
+        r_stride = radius_b.stride(0) if radius_b.numel() != 1 else 0
+    else:
+        r_value = float(radius_b)
+    f32 = torch.float32
+    outs = [torch.empty((na,), dtype=t, device=dev) for t in (torch.int32, f32, torch.bool)]
+    if na == 0:
+        return MatchResult(*outs)
+    n_tiles = -(-nb // SINGLE_COLS)
+    row_blocks = -(-na // SINGLE_ROWS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, min(n_tiles, sms // row_blocks))
+    part1 = torch.empty((splits, na), dtype=torch.int32, device=dev)
+    part2 = torch.empty((splits, na), dtype=torch.int32, device=dev)
+
+    fn = _cuda.load("matcher").proj_match_single
+    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    fn.argtypes = [vp, vp, cl, cl, vp, ci, cl, vp, cl, ci,
+                   vp, vp, cl, cl, vp, cl, cf, vp, ci, cl, vp, cl, ci,
+                   ci, cf, ci, cf, ci, vp, vp, vp, vp, vp, vp]
+    fn.restype = ci
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(pm1_a.data_ptr(), uv_a.data_ptr(), uv_a.stride(0), uv_a.stride(1),
+                 oct_a.data_ptr(), _NUM_TYPES[oct_a.dtype], oct_a.stride(0),
+                 valid_a.data_ptr(), valid_a.stride(0), na,
+                 pm1_b.data_ptr(), uv_b.data_ptr(), uv_b.stride(0), uv_b.stride(1),
+                 r_ptr, r_stride, r_value, pred_b.data_ptr(), _NUM_TYPES[pred_b.dtype],
+                 pred_b.stride(0), valid_b.data_ptr(), valid_b.stride(0), nb,
+                 int(bool(level_window)), float(max_dist), int(ratio is not None),
+                 float(ratio) if ratio is not None else 0.0, splits, part1.data_ptr(),
+                 part2.data_ptr(), *(o.data_ptr() for o in outs), stream)
+    _cuda.check(err, "proj_match_single")
+    fused_projection_match.launches += 1
+    return MatchResult(*outs)
+
+
 def fused_projection_match(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b,
                            valid_b, max_dist: float, level_window: bool = False,
                            ratio: Optional[float] = None) -> MatchResult:
@@ -153,10 +227,8 @@ def fused_projection_match(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, p
         return fused_projection_match_plain(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b,
                                             radius_b, pred_b, valid_b, max_dist,
                                             level_window, ratio)
-    out = _launch(False, pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
-                  max_dist, level_window, ratio, 1.0)
-    fused_projection_match.launches += 1
-    return out
+    return _launch_single(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
+                          max_dist, level_window, ratio)
 
 
 def fused_projection_match_dual(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b,

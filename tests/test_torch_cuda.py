@@ -89,6 +89,63 @@ def test_projection_match_dual(dev, na, nb, level_window):
             assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("case", ["window edge", "ties across tiles and splits", "ragged",
+                                  "65536 targets", "no valid query", "no valid target",
+                                  "scalar radius, int32 pred", "strided gate inputs"])
+@pytest.mark.parametrize("level_window", [False, True])
+def test_projection_match_edges(dev, case, level_window):
+    """The single matcher exactly equal to its plain version on the edges of
+    its design: the window's <=, ties in different 64-column tiles and
+    target splits, ragged row and column tiles, the key's 65536-target
+    limit, invalid rows, and the gate's inputs in the forms the tracker
+    passes (one radius by value, int32 levels) or with strides."""
+    na, nb = {"ragged": (300, 1000), "65536 targets": (100, 65536),
+              "ties across tiles and splits": (129, 4096)}.get(case, (200, 700))
+    pm1_a, uv_a, oct_a, va, pm1_b, uv_b, radius, pred, vb = _problem(dev, na, nb, nb + 3)
+    radius_arg = radius
+    if case == "window edge":  # integer positions: |du| or |dv| exactly r
+        uv_a = uv_a.round()
+        radius = radius.round()
+        q = torch.arange(nb, device=dev) % na
+        sign = torch.where(torch.arange(nb, device=dev) % 2 == 0, 1.0, -1.0)
+        uv_b = uv_a[q].clone()
+        uv_b[0::3, 0] += sign[0::3] * radius[0::3]
+        uv_b[1::3, 1] += sign[1::3] * radius[1::3]
+        uv_b[2::3] += (sign[2::3] * radius[2::3])[:, None]
+        radius_arg = radius
+    if case == "ties across tiles and splits":
+        cols = (5, 70, 1500, nb - 1)
+        for c in cols:
+            pm1_b[c], uv_b[c], vb[c], pred[c] = pm1_a[0], uv_a[0], True, -1.0
+        va[0] = True
+    if case == "no valid query":
+        va = torch.zeros_like(va)
+    if case == "no valid target":
+        vb = torch.zeros_like(vb)
+    if case == "scalar radius, int32 pred":
+        radius_arg = 30.0
+        pred = pred.to(torch.int32)
+    if case == "strided gate inputs":
+        uv_a = torch.stack([uv_a, uv_a + 1], -1)[..., 0]        # strides (2, 1) x 2
+        uv_b = uv_b.t().contiguous().t()                          # column-major (1, nb)
+        radius_arg = radius[:1].expand(nb)                        # stride 0
+        pred = pred.to(torch.int64)
+    args = (pm1_a, uv_a, oct_a, va, pm1_b, uv_b, radius_arg, pred, vb)
+    n0 = cuda_matcher.fused_projection_match.launches
+    got = cuda_matcher.fused_projection_match(*args, max_dist=100.0, level_window=level_window)
+    assert cuda_matcher.fused_projection_match.launches == n0 + 1
+    ref = cuda_matcher.fused_projection_match_plain(*args, max_dist=100.0,
+                                                    level_window=level_window)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    if case == "ties across tiles and splits":
+        assert int(got.idx[0]) == 5 and float(got.dist[0]) == 0.0
+    if case.startswith("no valid"):
+        assert (got.idx == -1).all()
+    if case == "window edge":
+        assert int(got.count) > 0
+
+
 def _pose_problem(dev, n, nb, seed, outlier_frac=0.1):
     """tests/test_pallas_pose_opt.py:make_problem at n front and nb bird
     observations, in numpy, on ``dev``."""
@@ -112,13 +169,22 @@ def _pose_problem(dev, n, nb, seed, outlier_frac=0.1):
             BirdObs(t(Xb), t(Xc), t(rng.uniform(0.5, 1.5, nb)), ones(nb)))
 
 
+def _flips(a, b) -> float:
+    return (a != b).float().mean().item() if a.numel() else 0.0
+
+
 @pytest.mark.parametrize("n,nb,prior_info,case", [
     (300, 80, 0.0, "base"), (1000, 777, 100.0, "ragged"), (2048, 2048, 100.0, "main path"),
-    (16, 200, 0.0, "bird only"), (513, 1, 100.0, "one bird row"), (8, 8, 0.0, "too few")])
+    (16, 200, 0.0, "bird only"), (513, 1, 100.0, "one bird row"), (8, 8, 0.0, "too few"),
+    (4096, 4096, 100.0, "rows past the registers"), (6000, 4000, 100.0, "uneven slices"),
+    (0, 300, 100.0, "no front rows"), (300, 0, 0.0, "no bird rows")])
 def test_pose_optimization(dev, n, nb, prior_info, case):
     """The kernel against its plain version at the JAX package's bounds for
     its own fused kernel: pose within 1e-3, inlier flips under 2%,
-    n_inliers within 5; the seed comes back with fewer than 3 front rows."""
+    n_inliers within 5; the seed comes back with fewer than 3 front rows.
+    The cluster's 8 x 256 row threads hold 2 rows each in registers: the
+    main path's 2048 + 2048 rows fill them, larger inputs also go through the
+    rows read from global memory at each evaluation."""
     from fishbirdeyevisualslam_torch.config import SystemConfig
     from fishbirdeyevisualslam_torch.geometry import se3
     from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
@@ -137,12 +203,27 @@ def test_pose_optimization(dev, n, nb, prior_info, case):
     assert cuda_pose_opt.pose_optimization.launches == n0 + 1
     d = se3.log(se3.compose(got.Tcw.cpu(), se3.inverse(ref.Tcw.cpu()))).abs().max().item()
     assert d < 1e-3
-    assert (got.front_inlier != ref.front_inlier).float().mean().item() < 0.02
-    assert (got.bird_inlier != ref.bird_inlier).float().mean().item() < 0.02
+    assert _flips(got.front_inlier, ref.front_inlier) < 0.02
+    assert _flips(got.bird_inlier, ref.bird_inlier) < 0.02
     assert abs(int(got.n_inliers) - int(ref.n_inliers)) <= 5
     assert got.n_inliers.dtype == torch.int32 and got.front_inlier.dtype == torch.bool
-    if case == "too few":
+    if case in ("too few", "no front rows"):
         assert torch.equal(got.Tcw, T0)
+
+
+def test_pose_optimization_bit_identical(dev):
+    """Two launches on one input agree bit for bit: the cluster's reduction
+    runs in a fixed order."""
+    from fishbirdeyevisualslam_torch.config import SystemConfig
+    from fishbirdeyevisualslam_torch.geometry import se3
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+    cfg = SystemConfig()
+    T_true, front, bird = _pose_problem(dev, 2048, 2048, 11)
+    T0 = se3.retract(T_true, torch.tensor([0.01, 0, -0.01, 0.05, 0.02, 0], device=dev))
+    a = cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, T0, front, bird, T0, 100.0)
+    b = cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, T0, front, bird, T0, 100.0)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_se3_functions_of_the_pose_kernel(dev):
