@@ -213,11 +213,12 @@ def phase_kernels(torch, cfg, dev):
     th = (float(orb.ini_th_fast), float(orb.min_th_fast))
     got = cuda_fast.fast_detect_levels(levels, *th)
     ref = cuda_fast.fast_detect_levels_plain(levels, *th)
-    err = 0.0
+    err, exact = 0.0, True
     for (s, r), (s0, r0) in zip(got, ref):
         torch.testing.assert_close(s, s0, rtol=1e-5, atol=1e-4)
         torch.testing.assert_close(r, r0, rtol=1e-5, atol=1e-4)
         err = max(err, float((s - s0).abs().max()), float((r - r0).abs().max()))
+        exact = exact and torch.equal(s, s0) and torch.equal(r, r0)
     px = sum(l.numel() for l in levels)
     b_ms, b_by = bound(px * 12, px * 16 * 6, PEAK_F32)
     rows["fast"] = dict(
@@ -226,7 +227,8 @@ def phase_kernels(torch, cfg, dev):
         max_abs_err=err, plain_ms=time_ms(torch, lambda: cuda_fast.fast_detect_levels_plain(
             levels, *th)), bound_ms=b_ms, bound_by=b_by, library_ms=None)
     timed(rows["fast"], "fast_detect_levels", lambda: cuda_fast.fast_detect_levels(levels, *th))
-    print(f"[kernel] FAST+NMS: {len(levels)} levels, {px} px, max_abs_err {err:.3g}, "
+    print(f"[kernel] FAST+NMS: {len(levels)} levels, {px} px, max_abs_err {err:.3g} "
+          f"({'bit-exact' if exact else 'not bit-exact'}), "
           f"{rows['fast']['ms']:.4f} ms (plain {rows['fast']['plain_ms']:.4f} ms, bound "
           f"{b_ms:.4f} ms by {b_by}; bytes {px * 12}, ops {px * 96})", flush=True)
 
@@ -685,11 +687,11 @@ def phase_slice(torch, cfg, dev, st, profile: bool = False):
     for c in on_path:
         if launches[c.__name__] == 0:
             fail(f"{c.__name__} was never launched on the main path")
-    if launches["pose_optimization"] != 2 * N_STREAM:
-        fail(f"the pose kernel launched {launches['pose_optimization']} times, not 2 per frame")
-    if launches["fused_projection_match"] != 3 * N_STREAM:
-        fail(f"the single matcher launched {launches['fused_projection_match']} times, not 3 "
-             "per frame")
+    for name, per_frame in (("fast_detect_levels", 1), ("fused_projection_match_dual", 1),
+                            ("fused_projection_match", 3), ("pose_optimization", 2)):
+        if launches[name] != per_frame * N_STREAM:
+            fail(f"{name} launched {launches[name]} times over the stream, not {per_frame} per "
+                 "frame")
     sc = torch.stack([o.scalars for o in outs]).cpu().numpy()
     n_bp = torch.stack([o.map.n_bp for o in outs]).cpu().numpy()
     print(f"[slice] over the stream, min/max: n_motion {sc[:, 0].min()}/{sc[:, 0].max()}, "

@@ -34,11 +34,9 @@ from fishbirdeyevisualslam_torch.device import const
 from fishbirdeyevisualslam_torch.ops import matcher
 from fishbirdeyevisualslam_torch.ops.matcher import MatchResult
 
-ROWS_PER_BLOCK = 64   # dual matcher: query rows per block (csrc/matcher.cu: TA)
-COLS_PER_TILE = 32    # dual matcher: target columns per tile (csrc/matcher.cu: TB)
-SINGLE_ROWS = 128     # single matcher: query rows per block (csrc/matcher.cu: S_BM)
-SINGLE_COLS = 64      # single matcher: target columns per tile (csrc/matcher.cu: S_BN)
-# dtypes the single matcher reads octave and predicted level in (csrc/matcher.cu: NumType)
+BLOCK_ROWS = 128  # query rows per block (csrc/matcher.cu: BM)
+TILE_COLS = 64    # target columns per tile (csrc/matcher.cu: BN)
+# dtypes the matchers read octave and predicted level in (csrc/matcher.cu: NumType)
 _NUM_TYPES = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
 
 
@@ -82,77 +80,11 @@ def fused_projection_match_dual_plain(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, 
         for scale in (1.0, r2_scale))
 
 
-def _launch(dual, pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
-            max_dist, level_window, ratio, r2_scale):
-    dev = pm1_a.device
-    for name, t in (("pm1_a", pm1_a), ("uv_a", uv_a), ("oct_a", oct_a), ("valid_a", valid_a),
-                    ("pm1_b", pm1_b), ("uv_b", uv_b), ("pred_b", pred_b),
-                    ("valid_b", valid_b)):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"projection match: {name} must lie on the CUDA device {dev}")
-    na, nb = pm1_a.shape[0], pm1_b.shape[0]
-    for name, t in (("pm1_a", pm1_a), ("pm1_b", pm1_b)):
-        if t.dtype != torch.bfloat16 or t.dim() != 2 or t.shape[1] != 256 \
-                or not t.is_contiguous() or t.data_ptr() % 32:
-            raise ValueError(f"projection match: {name} must be a contiguous, 32-byte aligned "
-                             "(N, 256) bfloat16 tensor")
-    if nb > 65536:
-        raise ValueError(f"projection match: at most 65536 targets, got {nb}")
-    if uv_a.shape != (na, 2) or uv_b.shape != (nb, 2) or oct_a.shape != (na,) \
-            or valid_a.shape != (na,) or pred_b.shape != (nb,) or valid_b.shape != (nb,):
-        raise ValueError("projection match: aux shapes do not match the descriptors")
-    f32 = torch.float32
-    na_pad = -(-max(na, 1) // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
-    if na_pad != na:
-        a = torch.zeros((na_pad, 256), dtype=torch.bfloat16, device=dev)
-        a[:na] = pm1_a
-        pm1_a = a
-    # gate precompute: invalid queries never pass the window (u = -1e6), invalid
-    # targets carry r = -1, the octave gate is a target-side interval
-    au = torch.where(valid_a, uv_a[:, 0].to(f32), -1e6)
-    av = uv_a[:, 1].to(f32).contiguous()
-    ao = oct_a.to(f32).contiguous()
-    br = torch.where(valid_b, _radius(radius_b, nb, dev), -1.0)
-    bu = uv_b[:, 0].to(f32).contiguous()
-    bv = uv_b[:, 1].to(f32).contiguous()
-    predf = pred_b.to(f32)
-    no_oct = predf < 0
-    blo = torch.where(no_oct, -1e9, predf - 1.0)
-    bhi = torch.where(no_oct, 1e9, predf + 1.0)
-
-    n_tiles = -(-nb // COLS_PER_TILE)
-    row_blocks = na_pad // ROWS_PER_BLOCK
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(n_tiles, -(-2 * sms // row_blocks)))
-    part1 = torch.empty((splits, na), dtype=torch.int32, device=dev)
-    part2 = torch.empty((splits, na), dtype=torch.int32, device=dev)
-    outs = [torch.empty((na,), dtype=t, device=dev)
-            for t in (torch.int32, f32, torch.bool) * (2 if dual else 1)]
-    out_ptrs = [o.data_ptr() for o in outs] + ([0, 0, 0] if not dual else [])
-
-    fn = _cuda.load("matcher").proj_match
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, cf, cf, ci, cf,
-                   ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-    fn.restype = ci
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(int(dual), pm1_a.data_ptr(), au.data_ptr(), av.data_ptr(), ao.data_ptr(), na,
-                 na_pad, pm1_b.data_ptr(), bu.data_ptr(), bv.data_ptr(), br.data_ptr(),
-                 blo.data_ptr(), bhi.data_ptr(), nb, int(bool(level_window)), float(r2_scale),
-                 float(max_dist), int(ratio is not None),
-                 float(ratio) if ratio is not None else 0.0, splits, part1.data_ptr(),
-                 part2.data_ptr(), *out_ptrs, stream)
-    _cuda.check(err, "proj_match")
-    if dual:
-        return MatchResult(*outs[:3]), MatchResult(*outs[3:])
-    return MatchResult(*outs)
-
-
-def _launch_single(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
-                   max_dist, level_window, ratio) -> MatchResult:
-    """The single matcher's launch: checks, outputs and scratch, nothing more;
-    the kernel reads the gate's inputs with their own strides and dtypes."""
+def _launch(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b, max_dist,
+            level_window, ratio=None, r2_scale=None):
+    """Either matcher's launch (the dual one when ``r2_scale`` is given):
+    checks, outputs and scratch, nothing more; the kernel reads the gate's
+    inputs with their own strides and dtypes."""
     dev = pm1_a.device
     na, nb = pm1_a.shape[0], pm1_b.shape[0]
     tensors = [("pm1_a", pm1_a), ("uv_a", uv_a), ("oct_a", oct_a), ("valid_a", valid_a),
@@ -186,22 +118,29 @@ def _launch_single(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, v
         r_stride = radius_b.stride(0) if radius_b.numel() != 1 else 0
     else:
         r_value = float(radius_b)
-    f32 = torch.float32
-    outs = [torch.empty((na,), dtype=t, device=dev) for t in (torch.int32, f32, torch.bool)]
+    dual = r2_scale is not None
+    outs = [torch.empty((na,), dtype=t, device=dev)
+            for t in (torch.int32, torch.float32, torch.bool) * (2 if dual else 1)]
+    results = (MatchResult(*outs[:3]), MatchResult(*outs[3:])) if dual else MatchResult(*outs)
     if na == 0:
-        return MatchResult(*outs)
-    n_tiles = -(-nb // SINGLE_COLS)
-    row_blocks = -(-na // SINGLE_ROWS)
+        return results
+    n_tiles = -(-nb // TILE_COLS)
+    row_blocks = -(-na // BLOCK_ROWS)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = max(1, min(n_tiles, sms // row_blocks))
     part1 = torch.empty((splits, na), dtype=torch.int32, device=dev)
     part2 = torch.empty((splits, na), dtype=torch.int32, device=dev)
 
-    fn = _cuda.load("matcher").proj_match_single
+    lib = _cuda.load("matcher")
     vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    if dual:
+        fn, mode = lib.proj_match_dual, [cf(r2_scale)]
+    else:
+        fn, mode = lib.proj_match_single, [ci(ratio is not None),
+                                           cf(ratio if ratio is not None else 0.0)]
     fn.argtypes = [vp, vp, cl, cl, vp, ci, cl, vp, cl, ci,
                    vp, vp, cl, cl, vp, cl, cf, vp, ci, cl, vp, cl, ci,
-                   ci, cf, ci, cf, ci, vp, vp, vp, vp, vp, vp]
+                   ci, cf] + [type(m) for m in mode] + [ci, vp, vp] + [vp] * len(outs) + [vp]
     fn.restype = ci
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -211,12 +150,11 @@ def _launch_single(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, v
                  pm1_b.data_ptr(), uv_b.data_ptr(), uv_b.stride(0), uv_b.stride(1),
                  r_ptr, r_stride, r_value, pred_b.data_ptr(), _NUM_TYPES[pred_b.dtype],
                  pred_b.stride(0), valid_b.data_ptr(), valid_b.stride(0), nb,
-                 int(bool(level_window)), float(max_dist), int(ratio is not None),
-                 float(ratio) if ratio is not None else 0.0, splits, part1.data_ptr(),
+                 int(bool(level_window)), float(max_dist), *mode, splits, part1.data_ptr(),
                  part2.data_ptr(), *(o.data_ptr() for o in outs), stream)
-    _cuda.check(err, "proj_match_single")
-    fused_projection_match.launches += 1
-    return MatchResult(*outs)
+    _cuda.check(err, fn.__name__)
+    (fused_projection_match_dual if dual else fused_projection_match).launches += 1
+    return results
 
 
 def fused_projection_match(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b,
@@ -227,8 +165,8 @@ def fused_projection_match(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, p
         return fused_projection_match_plain(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b,
                                             radius_b, pred_b, valid_b, max_dist,
                                             level_window, ratio)
-    return _launch_single(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
-                          max_dist, level_window, ratio)
+    return _launch(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
+                   max_dist, level_window, ratio=ratio)
 
 
 def fused_projection_match_dual(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b,
@@ -242,10 +180,8 @@ def fused_projection_match_dual(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius
         return fused_projection_match_dual_plain(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b,
                                                  radius_b, pred_b, valid_b, max_dist,
                                                  r2_scale, level_window)
-    out = _launch(True, pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
-                  max_dist, level_window, None, r2_scale)
-    fused_projection_match_dual.launches += 1
-    return out
+    return _launch(pm1_a, uv_a, oct_a, valid_a, pm1_b, uv_b, radius_b, pred_b, valid_b,
+                   max_dist, level_window, r2_scale=r2_scale)
 
 
 fused_projection_match.launches = 0

@@ -35,6 +35,59 @@ def test_fast_levels(dev, shapes):
         torch.testing.assert_close(r, r0, rtol=1e-5, atol=1e-4)
 
 
+def _fast_case(case, rng):
+    """Level images of one edge case of the FAST kernel's design (30 x 16
+    output tiles of one warp each, a 4 px halo)."""
+    rand = lambda h, w: rng.rand(h, w).astype(np.float32) * 255
+    if case == "narrower than the tile":
+        return [rand(60, 20), rand(45, 7), rand(33, 29), rand(70, 31), rand(12, 30)]
+    if case == "fewer than 7 rows":
+        return [rand(6, 100), rand(5, 33), rand(1, 64), rand(2, 2), rand(7, 50)]
+    if case == "plateaus":  # few grey levels: equal scores side by side
+        return [(rng.randint(0, 3, (90, 97)) * 40).astype(np.float32),
+                np.kron(rng.randint(0, 2, (20, 20)), np.ones((4, 4))).astype(np.float32) * 100]
+    if case == "differences at the thresholds":  # steps of 5: d == 5 and d == 15 occur
+        img = (rng.randint(0, 8, (80, 70)) * 5).astype(np.float32)
+        return [img, img + 0.5]
+    if case == "32 levels":
+        return [rand(10 + 3 * i, 5 + 7 * i) for i in range(32)]
+    from scipy.ndimage import gaussian_filter
+    from fishbirdeyevisualslam_torch.ops import image as image_ops
+    levels = []
+    for shape in ((400, 950), (384, 384)):   # "main path levels": a frame's 16 levels
+        img = gaussian_filter(rng.rand(*shape), 1.5)
+        img = ((img - img.min()) / (img.max() - img.min()) * 255).astype(np.float32)
+        levels += [l.numpy() for l in image_ops.build_pyramid(torch.from_numpy(img), 8, 1.2)]
+    return levels
+
+
+@pytest.mark.parametrize("case", ["narrower than the tile", "fewer than 7 rows", "plateaus",
+                                  "differences at the thresholds", "32 levels",
+                                  "main path levels"])
+def test_fast_levels_edges(dev, case):
+    """The FAST kernel bit-exact against its plain version on the edges of
+    its design: levels narrower than a tile or too short for any interior
+    row, plateaus of equal scores (the NMS keeps every maximum, s >= mx),
+    circle differences exactly equal to a threshold (the tests are strict),
+    the level table's 32 entries, and the main path's 16 level shapes."""
+    levels = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in _fast_case(case, np.random.RandomState(1))]
+    n0 = cuda_fast.fast_detect_levels.launches
+    got = cuda_fast.fast_detect_levels(levels, 15.0, 5.0)
+    assert cuda_fast.fast_detect_levels.launches == n0 + 1
+    ref = cuda_fast.fast_detect_levels_plain(levels, 15.0, 5.0)
+    for (s, r), (s0, r0) in zip(got, ref):
+        assert torch.equal(s, s0) and torch.equal(r, r0)
+    n_corners = sum(int((s > 0).sum()) for s, _ in got)
+    if case == "fewer than 7 rows":
+        assert n_corners == sum(int((s > 0).sum()) for s, _ in got[-1:]) and n_corners > 0
+    else:
+        assert n_corners > 0
+    if case == "plateaus":  # some maxima are kept beside an equal neighbour
+        s = got[0][0]
+        assert bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] > 0)).any())
+
+
 @pytest.mark.parametrize("n,side", [(1, 37), (300, 37), (50, 5)])
 def test_patch_gather(dev, n, side):
     rng = np.random.RandomState(n)
@@ -89,29 +142,26 @@ def test_projection_match_dual(dev, na, nb, level_window):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("case", ["window edge", "ties across tiles and splits", "ragged",
-                                  "65536 targets", "no valid query", "no valid target",
-                                  "scalar radius, int32 pred", "strided gate inputs"])
-@pytest.mark.parametrize("level_window", [False, True])
-def test_projection_match_edges(dev, case, level_window):
-    """The single matcher exactly equal to its plain version on the edges of
-    its design: the window's <=, ties in different 64-column tiles and
-    target splits, ragged row and column tiles, the key's 65536-target
-    limit, invalid rows, and the gate's inputs in the forms the tracker
-    passes (one radius by value, int32 levels) or with strides."""
+def _edge_problem(dev, case, edge_scales=(1.0,)):
+    """The arguments of one edge case of the matchers' design.  With
+    "window edge", every target sits exactly on a window's edge: |du| or
+    |dv| (or both) equal to r times the next of ``edge_scales``."""
     na, nb = {"ragged": (300, 1000), "65536 targets": (100, 65536),
               "ties across tiles and splits": (129, 4096)}.get(case, (200, 700))
     pm1_a, uv_a, oct_a, va, pm1_b, uv_b, radius, pred, vb = _problem(dev, na, nb, nb + 3)
     radius_arg = radius
-    if case == "window edge":  # integer positions: |du| or |dv| exactly r
+    if case == "window edge":  # integer positions: |du| or |dv| exactly r * scale
         uv_a = uv_a.round()
         radius = radius.round()
         q = torch.arange(nb, device=dev) % na
         sign = torch.where(torch.arange(nb, device=dev) % 2 == 0, 1.0, -1.0)
+        scales = torch.tensor(edge_scales, device=dev)[(torch.arange(nb, device=dev) // 3)
+                                                       % len(edge_scales)]
+        step = sign * radius * scales
         uv_b = uv_a[q].clone()
-        uv_b[0::3, 0] += sign[0::3] * radius[0::3]
-        uv_b[1::3, 1] += sign[1::3] * radius[1::3]
-        uv_b[2::3] += (sign[2::3] * radius[2::3])[:, None]
+        uv_b[0::3, 0] += step[0::3]
+        uv_b[1::3, 1] += step[1::3]
+        uv_b[2::3] += step[2::3][:, None]
         radius_arg = radius
     if case == "ties across tiles and splits":
         cols = (5, 70, 1500, nb - 1)
@@ -125,12 +175,28 @@ def test_projection_match_edges(dev, case, level_window):
     if case == "scalar radius, int32 pred":
         radius_arg = 30.0
         pred = pred.to(torch.int32)
+    if case.startswith("int"):  # pred as the tracker's levels: -1 where no estimate
+        assert bool((pred < 0).any())
+        pred = pred.to(torch.int32 if case.startswith("int32") else torch.int64)
     if case == "strided gate inputs":
         uv_a = torch.stack([uv_a, uv_a + 1], -1)[..., 0]        # strides (2, 1) x 2
         uv_b = uv_b.t().contiguous().t()                          # column-major (1, nb)
         radius_arg = radius[:1].expand(nb)                        # stride 0
         pred = pred.to(torch.int64)
-    args = (pm1_a, uv_a, oct_a, va, pm1_b, uv_b, radius_arg, pred, vb)
+    return pm1_a, uv_a, oct_a, va, pm1_b, uv_b, radius_arg, pred, vb
+
+
+@pytest.mark.parametrize("case", ["window edge", "ties across tiles and splits", "ragged",
+                                  "65536 targets", "no valid query", "no valid target",
+                                  "scalar radius, int32 pred", "strided gate inputs"])
+@pytest.mark.parametrize("level_window", [False, True])
+def test_projection_match_edges(dev, case, level_window):
+    """The single matcher exactly equal to its plain version on the edges of
+    its design: the window's <=, ties in different 64-column tiles and
+    target splits, ragged row and column tiles, the key's 65536-target
+    limit, invalid rows, and the gate's inputs in the forms the tracker
+    passes (one radius by value, int32 levels) or with strides."""
+    args = _edge_problem(dev, case)
     n0 = cuda_matcher.fused_projection_match.launches
     got = cuda_matcher.fused_projection_match(*args, max_dist=100.0, level_window=level_window)
     assert cuda_matcher.fused_projection_match.launches == n0 + 1
@@ -144,6 +210,33 @@ def test_projection_match_edges(dev, case, level_window):
         assert (got.idx == -1).all()
     if case == "window edge":
         assert int(got.count) > 0
+
+
+@pytest.mark.parametrize("case", ["window edge", "ties across tiles and splits", "ragged",
+                                  "65536 targets", "no valid query", "no valid target",
+                                  "int32 pred with -1 holes", "int64 pred with -1 holes",
+                                  "scalar radius, int32 pred", "strided gate inputs"])
+@pytest.mark.parametrize("level_window", [False, True])
+def test_projection_match_dual_edges(dev, case, level_window):
+    """The dual matcher, on the single matcher's design, exactly equal to its
+    plain version on the same edges, with targets exactly on the narrow (r)
+    and on the wide (2 r) window's edge."""
+    args = _edge_problem(dev, case, edge_scales=(1.0, 2.0))
+    n0 = cuda_matcher.fused_projection_match_dual.launches
+    got = cuda_matcher.fused_projection_match_dual(*args, max_dist=100.0, r2_scale=2.0,
+                                                   level_window=level_window)
+    assert cuda_matcher.fused_projection_match_dual.launches == n0 + 1
+    ref = cuda_matcher.fused_projection_match_dual_plain(*args, max_dist=100.0, r2_scale=2.0,
+                                                         level_window=level_window)
+    for g, r in zip(got, ref):
+        for x, y in zip(g, r):
+            assert torch.equal(x, y)
+    if case == "ties across tiles and splits":
+        assert all(int(g.idx[0]) == 5 and float(g.dist[0]) == 0.0 for g in got)
+    if case.startswith("no valid"):
+        assert all((g.idx == -1).all() for g in got)
+    if case == "window edge":
+        assert int(got[0].count) > 0 and int(got[1].count) > int(got[0].count)
 
 
 def _pose_problem(dev, n, nb, seed, outlier_frac=0.1):

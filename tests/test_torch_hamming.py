@@ -4,7 +4,8 @@
 (``ops/pallas_matcher.py``, in interpret mode) at the sizes of
 ``tests/test_pallas_matcher.py``, exactly: forced ties inside one of the
 Pallas kernel's 512-column tiles and across two, and a case with no valid
-target.  On the CPU the wrappers run the plain versions."""
+target.  On the CPU the wrappers run the plain versions.  The Pallas side
+of every case is computed once per run (``torch_refs.shared``)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,7 +15,9 @@ import torch
 from fishbirdeyevisualslam_tpu.ops import pallas_matcher as j_pm
 from fishbirdeyevisualslam_torch.ops import cuda_matcher
 
-torch.set_num_threads(2)
+import torch_refs
+
+torch.set_num_threads(1)
 
 
 def _words(rng, n):
@@ -26,12 +29,44 @@ def _t(x):
     return torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)
 
 
-@pytest.mark.parametrize("na,nb", [(100, 130), (64, 64)])
-def test_hamming_matrix_matches_jax(na, nb):
+MATRIX_SHAPES = [(100, 130), (64, 64)]
+MASKED_CASES = ["random", "ties", "no valid target"]
+
+
+def _matrix_problem(na, nb):
     rng = np.random.RandomState(na)
     a, b = _words(rng, na), _words(rng, nb)
     a[3] = b[7]   # a zero distance
-    ref = np.asarray(j_pm.hamming_matrix_packed(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    return a, b
+
+
+def _jax_refs():
+    """The Pallas kernels' results (interpret mode) for every case, as numpy."""
+    refs = {}
+    for na, nb in MATRIX_SHAPES:
+        a, b = _matrix_problem(na, nb)
+        refs["matrix", na, nb] = np.asarray(
+            j_pm.hamming_matrix_packed(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    for case in MASKED_CASES:
+        a, uv_a, b, uv_b, valid, r = _masked_problem(case)
+        refs["masked", case] = tuple(np.asarray(x) for x in j_pm.fused_masked_match(
+            jnp.asarray(a), jnp.asarray(uv_a), jnp.asarray(b), jnp.asarray(uv_b),
+            jnp.asarray(valid), r, interpret=True))
+    return refs
+
+
+torch_refs.register("torch_hamming_jax", __file__, _jax_refs)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(request, tmp_path_factory):
+    return torch_refs.shared(request, tmp_path_factory, "torch_hamming_jax")
+
+
+@pytest.mark.parametrize("na,nb", MATRIX_SHAPES)
+def test_hamming_matrix_matches_jax(jax_refs, na, nb):
+    a, b = _matrix_problem(na, nb)
+    ref = jax_refs["matrix", na, nb]
     got = cuda_matcher.hamming_matrix_packed_plain(_t(a), _t(b))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -57,11 +92,10 @@ def _masked_problem(case):
     return a, uv_a, b, uv_b, valid, 60.0
 
 
-@pytest.mark.parametrize("case", ["random", "ties", "no valid target"])
-def test_fused_masked_match_matches_jax(case):
+@pytest.mark.parametrize("case", MASKED_CASES)
+def test_fused_masked_match_matches_jax(jax_refs, case):
     a, uv_a, b, uv_b, valid, r = _masked_problem(case)
-    ref = j_pm.fused_masked_match(jnp.asarray(a), jnp.asarray(uv_a), jnp.asarray(b),
-                                  jnp.asarray(uv_b), jnp.asarray(valid), r, interpret=True)
+    ref = jax_refs["masked", case]
     args = (_t(a), _t(uv_a), _t(b), _t(uv_b), _t(valid), r)
     got = cuda_matcher.fused_masked_match_plain(*args)
     assert [x.dtype for x in got] == [torch.float32, torch.float32, torch.int32]

@@ -3,9 +3,11 @@ matchers' plain versions (the reference the CUDA kernels are held to) against
 the JAX package's dense ``matcher.match`` reference on the same problems,
 idx / ok / dist exactly; duplicate resolution and its tie order; and the
 fused-matcher route of the tracking core (candidate compaction) against its
-dense route."""
+dense route.  The JAX side of every case is computed once per run
+(``torch_refs.shared``)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -18,7 +20,9 @@ from fishbirdeyevisualslam_torch.slam import map_state as ms
 from fishbirdeyevisualslam_torch.slam import tracking as tr
 from fishbirdeyevisualslam_torch.slam.frame import Frame
 
-torch.set_num_threads(2)
+import torch_refs
+
+torch.set_num_threads(1)
 
 
 def _pm1(words):
@@ -73,12 +77,82 @@ def assert_same(res, ref):
     np.testing.assert_array_equal(res.dist.numpy(), np.asarray(ref.dist))
 
 
+def _ties_case():
+    rng = np.random.RandomState(2)
+    a = np.where(rng.rand(40, 256) > 0.5, 1.0, -1.0).astype(np.float32)
+    b = np.where(rng.rand(120, 256) > 0.5, 1.0, -1.0).astype(np.float32)
+    b[10:50] = a      # exact copies ...
+    b[80:120] = a     # ... twice, at higher columns
+    b[60:100:3] = -b[60:100:3]
+    compat = rng.rand(40, 120) > 0.2
+    return a, b, compat
+
+
+def _duplicates_case(seed):
+    rng = np.random.RandomState(seed)
+    n_a, n_b = 200, 16
+    idx = rng.randint(0, n_b, n_a).astype(np.int32)
+    dist = rng.randint(0, 4, n_a).astype(np.float32)
+    ok = rng.rand(n_a) > 0.2
+    idx = np.where(ok, idx, -1).astype(np.int32)
+    dist = np.where(ok, dist, 1e9).astype(np.float32)
+    return idx, dist, ok, n_b
+
+
+def _window_case():
+    rng = np.random.RandomState(3)
+    xa = rng.uniform(0, 100, (30, 2)).astype(np.float32)
+    xb = rng.uniform(0, 100, (50, 2)).astype(np.float32)
+    return rng, xa, xb
+
+
+def _negative_pred_problem():
+    prob = list(make_problem(seed=7))
+    prob[7] = np.full_like(prob[7], -1.0)
+    return prob
+
+
+def _jax_refs():
+    """The JAX package's results for every case of this module, as numpy."""
+    refs = {}
+    for seed in (0, 1):
+        for lw in (False, True):
+            for ratio in (None, 0.8):
+                refs["single", lw, ratio, seed] = jax_dense(make_problem(seed=seed), 60.0, lw,
+                                                            ratio)
+    for seed in (4, 5):
+        for lw in (False, True):
+            refs["dual", lw, seed] = [jax_dense(make_problem(seed=seed), 60.0, lw, scale=scale)
+                                      for scale in (1.0, 2.0)]
+    refs["negative pred"] = jax_dense(_negative_pred_problem(), 60.0, level_window=False)
+    a, b, compat = _ties_case()
+    for ratio in (None, 0.95):
+        refs["ties", ratio] = j_matcher.match(jnp.asarray(a, jnp.bfloat16),
+                                              jnp.asarray(b, jnp.bfloat16), jnp.asarray(compat),
+                                              max_dist=100.0, ratio=ratio)
+    for seed in (0, 1, 2):
+        idx, dist, ok, n_b = _duplicates_case(seed)
+        refs["duplicates", seed] = j_matcher.resolve_duplicates(
+            j_matcher.MatchResult(jnp.asarray(idx), jnp.asarray(dist), jnp.asarray(ok)), n_b)
+    _, xa, xb = _window_case()
+    refs["window"] = j_matcher.window_mask(jnp.asarray(xa), jnp.asarray(xb), 20.0)
+    return {k: jax.tree.map(np.asarray, v) for k, v in refs.items()}
+
+
+torch_refs.register("torch_match_jax", __file__, _jax_refs)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(request, tmp_path_factory):
+    return torch_refs.shared(request, tmp_path_factory, "torch_match_jax")
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("level_window", [False, True])
 @pytest.mark.parametrize("ratio", [None, 0.8])
-def test_projection_match_plain(level_window, ratio, seed):
+def test_projection_match_plain(jax_refs, level_window, ratio, seed):
     prob = make_problem(seed=seed)
-    ref = jax_dense(prob, 60.0, level_window, ratio)
+    ref = jax_refs["single", level_window, ratio, seed]
     res = cuda_matcher.fused_projection_match(*to_torch(prob), max_dist=60.0,
                                               level_window=level_window, ratio=ratio)
     assert int(res.count) > 50
@@ -87,66 +161,46 @@ def test_projection_match_plain(level_window, ratio, seed):
 
 @pytest.mark.parametrize("seed", [4, 5])
 @pytest.mark.parametrize("level_window", [False, True])
-def test_projection_match_dual_plain(level_window, seed):
+def test_projection_match_dual_plain(jax_refs, level_window, seed):
     prob = make_problem(seed=seed)
     res1, res2 = cuda_matcher.fused_projection_match_dual(
         *to_torch(prob), max_dist=60.0, r2_scale=2.0, level_window=level_window)
-    for res, scale in ((res1, 1.0), (res2, 2.0)):
-        assert_same(res, jax_dense(prob, 60.0, level_window, scale=scale))
+    for res, ref in zip((res1, res2), jax_refs["dual", level_window, seed]):
+        assert_same(res, ref)
 
 
-def test_negative_pred_disables_octave_gate():
-    prob = list(make_problem(seed=7))
-    prob[7] = np.full_like(prob[7], -1.0)
-    gated = cuda_matcher.fused_projection_match(*to_torch(prob), max_dist=60.0,
-                                                level_window=True)
-    assert_same(gated, jax_dense(prob, 60.0, level_window=False))
+def test_negative_pred_disables_octave_gate(jax_refs):
+    gated = cuda_matcher.fused_projection_match(*to_torch(_negative_pred_problem()),
+                                                max_dist=60.0, level_window=True)
+    assert_same(gated, jax_refs["negative pred"])
 
 
 @pytest.mark.parametrize("ratio", [None, 0.95])
-def test_match_ties_go_to_lowest_column(ratio):
+def test_match_ties_go_to_lowest_column(jax_refs, ratio):
     """Equal best distances pick the lowest column; the second-best may equal
     the best (so a ratio test rejects exact duplicates), as in the JAX package."""
-    rng = np.random.RandomState(2)
-    a = np.where(rng.rand(40, 256) > 0.5, 1.0, -1.0).astype(np.float32)
-    b = np.where(rng.rand(120, 256) > 0.5, 1.0, -1.0).astype(np.float32)
-    b[10:50] = a      # exact copies ...
-    b[80:120] = a     # ... twice, at higher columns
-    b[60:100:3] = -b[60:100:3]
-    compat = rng.rand(40, 120) > 0.2
-    ref = j_matcher.match(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16),
-                          jnp.asarray(compat), max_dist=100.0, ratio=ratio)
+    a, b, compat = _ties_case()
     res = matcher.match(torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16(),
                         torch.from_numpy(compat), max_dist=100.0, ratio=ratio)
-    assert_same(res, ref)
+    assert_same(res, jax_refs["ties", ratio])
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_resolve_duplicates_lowest_row(seed):
+def test_resolve_duplicates_lowest_row(jax_refs, seed):
     """Many rows on few columns with tied distances: the closest survives,
     equal distances going to the lowest row."""
-    rng = np.random.RandomState(seed)
-    n_a, n_b = 200, 16
-    idx = rng.randint(0, n_b, n_a).astype(np.int32)
-    dist = rng.randint(0, 4, n_a).astype(np.float32)
-    ok = rng.rand(n_a) > 0.2
-    idx = np.where(ok, idx, -1).astype(np.int32)
-    dist = np.where(ok, dist, 1e9).astype(np.float32)
-    ref = j_matcher.resolve_duplicates(
-        j_matcher.MatchResult(jnp.asarray(idx), jnp.asarray(dist), jnp.asarray(ok)), n_b)
+    idx, dist, ok, n_b = _duplicates_case(seed)
     res = matcher.resolve_duplicates(
         matcher.MatchResult(torch.from_numpy(idx), torch.from_numpy(dist), torch.from_numpy(ok)),
         n_b)
-    assert_same(res, ref)
+    assert_same(res, jax_refs["duplicates", seed])
 
 
-def test_window_mask_and_hamming():
-    rng = np.random.RandomState(3)
-    xa = rng.uniform(0, 100, (30, 2)).astype(np.float32)
-    xb = rng.uniform(0, 100, (50, 2)).astype(np.float32)
+def test_window_mask_and_hamming(jax_refs):
+    rng, xa, xb = _window_case()
     np.testing.assert_array_equal(
         matcher.window_mask(torch.from_numpy(xa), torch.from_numpy(xb), 20.0).numpy(),
-        np.asarray(j_matcher.window_mask(jnp.asarray(xa), jnp.asarray(xb), 20.0)))
+        jax_refs["window"])
     a, b = _pm1(rng.randint(0, 2**32, (30, 8), dtype=np.uint64).astype(np.uint32)), \
         _pm1(rng.randint(0, 2**32, (50, 8), dtype=np.uint64).astype(np.uint32))
     ham = t_orb.hamming_matrix(torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16())

@@ -2,7 +2,8 @@
 the JAX package on the problem of ``tests/test_pallas_pose_opt.py``, at that
 test's bounds: pose within 1e-3 (max abs of the se3 log of the difference),
 inlier flips under 2%, ``n_inliers`` within 5.  Every problem here has the
-same shapes, so one JAX compile serves them all.  On the CPU the kernel's
+same shapes, so one JAX compile serves them all; JAX solves every problem
+once per run (``torch_refs.shared``).  On the CPU the kernel's
 wrapper (``solvers/cuda_pose_opt.py``) runs the plain route."""
 
 import numpy as np
@@ -20,7 +21,9 @@ from fishbirdeyevisualslam_torch.geometry import se3 as t_se3
 from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 from fishbirdeyevisualslam_torch.solvers import pose_opt as t_po
 
-torch.set_num_threads(2)
+import torch_refs
+
+torch.set_num_threads(1)
 
 CFG = SystemConfig()
 JCFG = JaxConfig()
@@ -50,16 +53,56 @@ _jax_solver = jax.jit(lambda T0, fr, bi, pT, info: j_po.pose_optimization(
     JCFG.camera, JCFG.ba, T0, fr, bi, prior_T=pT, prior_info=info, use_fused=False))
 
 
-def _solve_both(T0, front, bird, prior_info=0.0):
-    ref = _jax_solver(jnp.asarray(T0), j_po.FrontObs(*map(jnp.asarray, front)),
-                      j_po.BirdObs(*map(jnp.asarray, bird)), jnp.asarray(T0),
-                      jnp.float32(prior_info))
+def _problems():
+    """Every problem this module solves with both packages:
+    name -> (true pose, seed pose, front, bird, prior_info)."""
+    identity = np.asarray(j_se3.identity())
+    probs = {}
+    for seed in (0, 1, 2):
+        T_true, front, bird = make_problem(seed=seed)
+        probs[f"seed {seed}"] = (T_true, identity, front, bird, 0.0)
+    for seed in (3, 4):
+        T_true, front, bird = make_problem(seed=seed)
+        T0 = np.asarray(j_se3.retract(jnp.asarray(T_true), jnp.asarray(
+            [0.01, 0, -0.01, 0.05, 0.02, 0], jnp.float32)))
+        probs[f"prior {seed}"] = (T_true, T0, front, bird, 100.0)
+    # tests/test_pallas_pose_opt.py:73's case: the front starved to 4 valid
+    # rows, the bird view carrying the pose
+    T_true, front, bird = make_problem(seed=5, outlier_frac=0.0)
+    probs["bird only"] = (T_true, identity, front[:3] + (np.arange(300) < 4,), bird, 0.0)
+    T_true, front, bird = make_problem(outlier_frac=0.0)
+    T0 = np.asarray(j_se3.exp(jnp.asarray([0, 0, 0.1, 1.0, 0, 0], jnp.float32)))
+    probs["too few"] = (T_true, T0, front[:3] + (np.arange(300) < 2,),
+                        bird[:3] + (np.zeros(80, bool),), 0.0)
+    return probs
+
+
+def _jax_refs():
+    """Each problem with JAX's solution, as numpy trees."""
+    return {name: (prob, jax.tree.map(np.asarray, _jax_solver(
+        jnp.asarray(T0), j_po.FrontObs(*map(jnp.asarray, front)),
+        j_po.BirdObs(*map(jnp.asarray, bird)), jnp.asarray(T0), jnp.float32(prior_info))))
+        for name, prob in _problems().items() for _, T0, front, bird, prior_info in [prob]}
+
+
+torch_refs.register("torch_pose_opt_jax", __file__, _jax_refs)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(request, tmp_path_factory):
+    return torch_refs.shared(request, tmp_path_factory, "torch_pose_opt_jax")
+
+
+def _solve_both(jax_refs, name):
+    """The port's plain LM on a problem, beside JAX's solution of it.
+    Returns (true pose, seed pose, port's result, JAX's result)."""
+    (T_true, T0, front, bird, prior_info), ref = jax_refs[name]
     T = torch.from_numpy(np.array(T0))
     out = t_po.pose_optimization(CFG.camera, CFG.ba, T,
                                  t_po.FrontObs(*map(torch.from_numpy, front)),
                                  t_po.BirdObs(*map(torch.from_numpy, bird)),
                                  prior_T=T, prior_info=prior_info)
-    return out, ref
+    return T_true, T0, out, ref
 
 
 def _pose_diff(a, b):
@@ -75,29 +118,23 @@ def _check(out, ref):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_matches_jax(seed):
-    T_true, front, bird = make_problem(seed=seed)
-    out, ref = _solve_both(np.asarray(j_se3.identity()), front, bird)
+def test_matches_jax(jax_refs, seed):
+    T_true, _, out, ref = _solve_both(jax_refs, f"seed {seed}")
     _check(out, ref)
     if seed == 0:  # the JAX test's own problem lands on the true pose
         assert _pose_diff(out.Tcw.numpy(), T_true) < 5e-3
 
 
 @pytest.mark.parametrize("seed", [3, 4])
-def test_matches_jax_with_prior(seed):
-    T_true, front, bird = make_problem(seed=seed)
-    T0 = np.asarray(j_se3.retract(jnp.asarray(T_true),
-                                  jnp.asarray([0.01, 0, -0.01, 0.05, 0.02, 0], jnp.float32)))
-    out, ref = _solve_both(T0, front, bird, prior_info=100.0)
+def test_matches_jax_with_prior(jax_refs, seed):
+    _, _, out, ref = _solve_both(jax_refs, f"prior {seed}")
     _check(out, ref)
 
 
-def test_bird_only_observations_match_jax():
+def test_bird_only_observations_match_jax(jax_refs):
     """tests/test_pallas_pose_opt.py:73's case: the front starved to 4 valid
     rows, the bird view carrying the pose (here at this module's shapes)."""
-    T_true, front, bird = make_problem(seed=5, outlier_frac=0.0)
-    front = front[:3] + (np.arange(300) < 4,)
-    out, ref = _solve_both(np.asarray(j_se3.identity()), front, bird)
+    T_true, _, out, ref = _solve_both(jax_refs, "bird only")
     _check(out, ref)
     assert int(out.n_inliers) == 4
     assert _pose_diff(out.Tcw.numpy(), T_true) < 2e-2
@@ -118,12 +155,8 @@ def test_kernel_wrapper_on_cpu_is_the_plain_route(prior_info):
         assert torch.equal(x, y)
 
 
-def test_too_few_returns_seed():
-    _, front, bird = make_problem(outlier_frac=0.0)
-    front = front[:3] + (np.arange(300) < 2,)
-    bird = bird[:3] + (np.zeros(80, bool),)
-    T0 = np.asarray(j_se3.exp(jnp.asarray([0, 0, 0.1, 1.0, 0, 0], jnp.float32)))
-    out, ref = _solve_both(T0, front, bird)
+def test_too_few_returns_seed(jax_refs):
+    _, T0, out, ref = _solve_both(jax_refs, "too few")
     np.testing.assert_allclose(out.Tcw.numpy(), T0, atol=1e-7)
     np.testing.assert_allclose(np.asarray(ref.Tcw), T0, atol=1e-7)
 

@@ -32,7 +32,9 @@ from fishbirdeyevisualslam_torch.slam import frame as t_frame
 from fishbirdeyevisualslam_torch.slam import tracking as t_tr
 from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 
-torch.set_num_threads(2)
+import torch_refs
+
+torch.set_num_threads(1)
 
 F = FB = 256
 P, PB, K, M = 1024, 512, 16, 4
@@ -100,34 +102,53 @@ def _compile_jax_track():
         jax.ShapeDtypeStruct((), jnp.bool_)).compile()
 
 
-@pytest.fixture(scope="module")
-def slice_run():
+def _jax_refs():
+    """The JAX side, as numpy trees: the frame, the map built from it, the
+    tracking inputs and JAX's track_frame_core on them."""
     with ThreadPoolExecutor(1) as pool:
         j_track = pool.submit(_compile_jax_track)
-        return _slice_run(j_track)
+        rng = np.random.RandomState(0)
+        front, bird = _image((400, 950), 0), _image((384, 384), 1)
+        mask = np.full((384, 384), 255, np.float32)
+        jf = j_build_frame(jnp.asarray(front), jnp.asarray(bird), jnp.asarray(mask),
+                           jnp.zeros(3), jnp.float32(0.0), JCFG, F, None, FB)
+        fr = _np(jf)
+        m, n = _build_map(fr, rng)
+        cand = np.full(2 * F, -1, np.int32)
+        cand[::2] = np.arange(F) % n
+        T_pred = np.array(j_se3.exp(jnp.asarray([0.002, -0.001, 0.0015, 0.03, -0.02, 0.04],
+                                                jnp.float32)))
+        last_bp = np.full(FB, -1, np.int32)
+        last_bp[200:] = np.arange(FB - 200)       # shared landmarks
+        T_last = np.array(j_se3.identity())
+        jout = j_track.result()(
+            j_ms.MapState(**{k: jnp.asarray(v) for k, v in m.items()}), jf,
+            jnp.asarray(T_pred), jnp.asarray(cand), jnp.int32(0), j_tr.bird_only_view(jf),
+            jnp.asarray(last_bp), jnp.asarray(T_last), jnp.asarray(True))
+    return dict(front=front, bird=bird, mask=mask, fr=fr, m=m, cand=cand, T_pred=T_pred,
+                last_bp=last_bp, T_last=T_last, jout=jax.tree.map(np.asarray, jout))
 
 
-def _slice_run(j_track):
-    rng = np.random.RandomState(0)
-    front, bird = _image((400, 950), 0), _image((384, 384), 1)
-    mask = np.full((384, 384), 255, np.float32)
-    jf = j_build_frame(jnp.asarray(front), jnp.asarray(bird), jnp.asarray(mask), jnp.zeros(3),
-                       jnp.float32(0.0), JCFG, F, None, FB)
-    fr = _np(jf)
-    m, n = _build_map(fr, rng)
-    cand = np.full(2 * F, -1, np.int32)
-    cand[::2] = np.arange(F) % n
-    T_pred = np.array(j_se3.exp(jnp.asarray([0.002, -0.001, 0.0015, 0.03, -0.02, 0.04],
-                                            jnp.float32)))
-    last_bp = np.full(FB, -1, np.int32)
-    last_bp[200:] = np.arange(FB - 200)       # shared landmarks
-    T_last = np.array(j_se3.identity())
-    jout = j_track.result()(
-        j_ms.MapState(**{k: jnp.asarray(v) for k, v in m.items()}), jf,
-        jnp.asarray(T_pred), jnp.asarray(cand), jnp.int32(0), j_tr.bird_only_view(jf),
-        jnp.asarray(last_bp), jnp.asarray(T_last), jnp.asarray(True))
-    args = (torch.from_numpy(T_pred), torch.from_numpy(cand), 0)
-    last = (torch.from_numpy(last_bp), torch.from_numpy(T_last), True)
+def _slice_run():
+    ref = _jax_refs()
+    return dict(ref, **_port_run(ref))
+
+
+torch_refs.register("torch_slice", __file__, _slice_run)
+
+
+@pytest.fixture(scope="module")
+def slice_run(request, tmp_path_factory):
+    return torch_refs.shared(request, tmp_path_factory, "torch_slice")
+
+
+def _port_run(ref):
+    """The port on the JAX side's inputs: the same converted frame and map,
+    the CUDA route with its plain kernels, and raw images -> build_frame."""
+    fr, m = ref["fr"], ref["m"]
+    front, bird, mask = ref["front"], ref["bird"], ref["mask"]
+    args = (torch.from_numpy(ref["T_pred"]), torch.from_numpy(ref["cand"]), 0)
+    last = (torch.from_numpy(ref["last_bp"]), torch.from_numpy(ref["T_last"]), True)
     tf = convert.frame_from_numpy(fr, "cpu")
     tm = convert.map_state_from_numpy(m, "cpu")
     # record the pose optimisations the tracking core looks up in the wrapper module
@@ -148,8 +169,8 @@ def _slice_run(j_track):
                                  FB, device="cpu")
     tout_raw = t_tr.track_frame_core(tm, tf_raw, TCFG, *args, t_tr.bird_only_view(tf_raw),
                                      *last, device="cpu")
-    return dict(fr=fr, m=m, jout=jout, tout=tout, tout_fused=tout_fused, tf_raw=tf_raw,
-                tout_raw=tout_raw, pose_calls=pose_calls)
+    return dict(tout=tout, tout_fused=tout_fused, tf_raw=tf_raw, tout_raw=tout_raw,
+                pose_calls=pose_calls)
 
 
 def _pose_diff(a, b):
