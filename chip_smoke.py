@@ -5,6 +5,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py                 # all phases (one card, nvcc)
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --profile       # all phases + the profiled frame's op table
+    python3 chip_smoke.py --mapping-only  # build + the mapping phase only
 
 Phases, each printing its lines:
   1. the card and the toolchain; the kernels built from
@@ -23,7 +24,16 @@ Phases, each printing its lines:
      kernel's launch count over that stream, and one frame under
      torch.profiler (device activities and busy share);
   4. the stream's next frame through the kernels' plain versions, and its
-     tracking through the CPU's dense route, each compared with the kernels.
+     tracking through the CPU's dense route, each compared with the kernels;
+  5. keyframes and local mapping at full width on a moving stream: a 30-frame
+     arc drive rendered by io/synthetic.py, bootstrapped with two keyframes at
+     their ground-truth poses, every later frame tracked with the odometry
+     prior, keyframes chosen by need_new_keyframe, inserted and mapped
+     (triangulation, fusion, culls, local BA); per keyframe the synchronised
+     times of both mapping stages, host syncs, window sizes and point counts;
+     the kernel launches over the stream; the ATE of the tracked poses; one
+     keyframe's mapping step held against the port's CPU run of it and run
+     twice on the card (bit-identical).
 Then the kernel table as one JSON line, the card's name and power limit, and
 the device line.  Any failed check exits non-zero.  Needs no JAX.
 """
@@ -767,12 +777,285 @@ def phase_slice(torch, cfg, dev, st, profile: bool = False):
     return launches, N_STREAM / dt, activities
 
 
+N_MAP = 30          # frames of the mapping phase's synthetic drive
+MAP_STEP = 0.5      # metres per frame
+MAP_KF1 = 3         # the bootstrap's second keyframe
+ATE_BOUND = 0.5     # m over the drive: a loose sanity bound, not a target
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def count_syncs(torch, dev, out: list):
+    """Append to ``out`` the host syncs (``torch.cuda.set_sync_debug_mode``
+    warnings) of the block; on the CPU, nothing to count."""
+    if dev.type != "cuda":
+        yield
+        out.append(0)
+        return
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    out.append(sum("synchroniz" in str(x.message) for x in w))
+
+
+def map_diff(torch, cfg, a, b, new_kf: int):
+    """How far two maps after one mapping step are apart: (keyframe fields
+    equal, pose max |se3 log|, live front points, observations and bird
+    points of each, the share of a's front points that b holds at the same
+    slot with the same observations, and the 99th percentile of those points'
+    position difference reprojected into the new keyframe, in px)."""
+    from fishbirdeyevisualslam_torch.device import to_device
+    from fishbirdeyevisualslam_torch.geometry import camera, se3
+    cpu = torch.device("cpu")
+    a, b = to_device(a, cpu), to_device(b, cpu)
+    kf_same = torch.equal(a.kf_valid, b.kf_valid) and torch.equal(a.kf_seq, b.kf_seq)
+    dT = se3.log(se3.compose(a.kf_Tcw, se3.inverse(b.kf_Tcw)))[a.kf_valid].abs().max().item()
+    same = a.mp_valid & b.mp_valid & (a.obs_kf == b.obs_kf).all(1) \
+        & (a.obs_feat == b.obs_feat).all(1) & (a.obs_valid == b.obs_valid).all(1)
+    uv = lambda m: camera.project_pinhole(cfg.camera, se3.transform(b.kf_Tcw[new_kf],
+                                                                    m.mp_pos[same]))
+    d_px = (uv(a) - uv(b)).abs().max(-1).values
+    p99 = torch.quantile(d_px, 0.99).item() if d_px.numel() else 0.0
+    counts = [int(x.sum()) for x in (a.mp_valid, b.mp_valid, a.obs_valid & a.mp_valid[:, None],
+                                     b.obs_valid & b.mp_valid[:, None], a.bp_valid, b.bp_valid)]
+    return kf_same, dT, counts, float(same.sum()) / max(int(a.mp_valid.sum()), 1), p99
+
+
+def profile_mapping(torch, run) -> None:
+    """One keyframe's mapping step under torch.profiler: wall, device busy
+    time and activities, and the ops that cost the device and the host most."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    print(f"[mapping profile] one local_mapping_step: {wall:.1f} ms wall (profiled), "
+          f"{len(kernels)} device activities, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}% of the wall time)", flush=True)
+    ka = prof.key_averages()
+    print(ka.table(sort_by="cuda_time_total", row_limit=12))
+    print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
+
+
+def phase_mapping(torch, cfg, dev, n_frames: int = N_MAP, check_cpu: bool = True,
+                  profile: bool = False):
+    """Keyframes and local mapping at full width on a moving stream: an arc
+    drive rendered by the port's copy of io/synthetic.py, bootstrapped with two
+    keyframes at their ground-truth poses (frame 0 written as the fixed
+    gauge, frame MAP_KF1 inserted, points triangulated between the two, one
+    local mapping step) in place of the two-view initializer, then every frame
+    tracked with the odometry motion prior; need_new_keyframe decides on the
+    counters SlamSystem._track_ok feeds it, and each keyframe is inserted and
+    mapped as its synchronous branch does.  One keyframe's mapping step is
+    held against the port's CPU run of it and run twice on the card.
+    Returns (the kernel launches over the stream, the ATE, the per-keyframe
+    rows)."""
+    from fishbirdeyevisualslam_torch.device import to_device
+    from fishbirdeyevisualslam_torch.geometry import ipm, odometry, se3
+    from fishbirdeyevisualslam_torch.io import evaluate, synthetic
+    from fishbirdeyevisualslam_torch.ops import cuda_fast, cuda_matcher, cuda_patch
+    from fishbirdeyevisualslam_torch.slam import map_state as ms
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from fishbirdeyevisualslam_torch.slam.frame import build_frame
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+
+    cap = cfg.capacity
+    F, FB = cap.max_front_kp, cap.max_bird_kp
+    n_nb = cfg.tracking.mapping_neighbors
+    t0 = time.perf_counter()
+    seq = synthetic.make_sequence(cfg, n_frames=n_frames, kind="arc", step=MAP_STEP, seed=0)
+    print(f"[mapping] rendered an arc drive of {n_frames} frames, {MAP_STEP} m per frame, in "
+          f"{time.perf_counter() - t0:.1f} s (front {cfg.camera.width}x{cfg.camera.height}, "
+          f"bird {cfg.bird.cols}x{cfg.bird.rows}; K={cap.max_keyframes} P={cap.max_points} "
+          f"PB={cap.max_bird_points} M={cap.max_obs_per_point}, {F}+{FB} keypoints, "
+          f"mapping_neighbors {n_nb}, local BA {cap.max_local_kfs}+{cap.max_local_observers} "
+          f"keyframes, {cap.max_local_points}+{cap.max_local_bird_points} points)", flush=True)
+    Tbc = ipm.extrinsics_Tbc(cfg.extrinsics, device=dev)
+
+    def gt_Tcw(i):
+        Twb = odometry.se2_to_se3(torch.as_tensor(seq.gt[i], device=dev))
+        return se3.inverse(se3.compose(Twb, Tbc))
+
+    def frame(i):
+        fr = seq.frames[i]
+        return build_frame(fr["front"], fr["bird"], fr["mask"].astype(np.float32),
+                           seq.odom[i], fr["timestamp"], cfg, F, fr["contour"], FB, device=dev)
+
+    counters = (cuda_fast.fast_detect_levels, cuda_patch.extract_patches,
+                cuda_matcher.fused_projection_match_dual, cuda_matcher.fused_projection_match,
+                cuda_pose_opt.pose_optimization)
+    for c in counters:
+        c.launches = 0
+    none = lambda n: torch.full((n,), -1, dtype=torch.int32, device=dev)
+
+    # --- bootstrap: two keyframes at ground truth (stands in for the initializer)
+    f0, f1 = frame(0), frame(MAP_KF1)
+    m = tr._write_kf(ms.empty_map(cfg, device=dev), 0, f0, gt_Tcw(0), True, 0)
+    m = tr.insert_keyframe(m, f1, tr.TrackObs(none(F), none(FB)), gt_Tcw(MAP_KF1), cfg,
+                           MAP_KF1, slot=1, device=dev)
+    m = tr.triangulate_new_points(m, 1, 0, cfg)
+    n_boot = int(m.n_mp)
+    m = tr.local_mapping_step(m, 1, cfg, n_nb, device=dev)
+    print(f"[mapping] bootstrap (in place of the two-view initializer): keyframes at frames 0 "
+          f"and {MAP_KF1} at their ground-truth poses, {n_boot} points triangulated between "
+          f"them, {int(m.n_mp)} after the first local mapping step", flush=True)
+
+    est = {0: gt_Tcw(0).cpu(), MAP_KF1: m.kf_Tcw[1].cpu()}
+    last_f, last_Tcw = f1, m.kf_Tcw[1]
+    assoc = tr.TrackObs(m.kf_mp[1], m.kf_bird_mp[1])
+    last_kf_slot, last_kf_frame = 1, MAP_KF1
+    kf_rows, captured, n_lost, scalars = [], None, 0, []
+    t_stream = time.perf_counter()
+    for i in range(MAP_KF1 + 1, n_frames):
+        f = frame(i)
+        T_pred = odometry.motion_prior_Tcw(cfg.extrinsics, last_Tcw, last_f.odom, f.odom)
+        cand = torch.cat([assoc.mp_idx, m.kf_mp[last_kf_slot]])
+        core = tr.track_frame_core(m, f, cfg, T_pred, cand, last_kf_slot,
+                                   tr.bird_only_view(last_f), assoc.bp_idx, last_Tcw, True,
+                                   device=dev)
+        n_mm, n_in, nref3, nref2, n_bird, n_ref_bird, n_kfs = core.scalars.tolist()
+        m, Tcw = core.map, core.Tcw
+        assoc = tr.TrackObs(core.mp_idx, core.bp_idx)
+        if n_in < 10:   # the facade's loss gate within 2 fps of an initialisation
+            n_lost += 1
+        scalars.append((n_mm, n_in, n_bird))
+        need, _ = tr.need_new_keyframe(
+            cfg, localization_only=False, n_kfs=n_kfs, frame_id=i, last_kf_frame_id=last_kf_frame,
+            last_reloc_frame_id=MAP_KF1, n_inliers=n_in,
+            n_ref_matches=nref3 if n_kfs > 2 else nref2, mapping_idle=True,
+            n_bird_matched=n_bird, n_ref_bird=n_ref_bird)
+        if need:
+            slot, ok, _ = tr.free_kf_slot(m)
+            if not bool(ok):
+                m = tr.force_evict_keyframe(m, cfg)
+                slot = tr.free_kf_slot(m)[0]
+            slot = int(slot)
+            m = tr.insert_keyframe(m, f, assoc, Tcw, cfg, i, slot=slot, device=dev)
+            if captured is None and len(kf_rows) == 1:
+                captured = (m, slot)
+            row = dict(frame=i, slot=slot, n_inliers=n_in, n_motion=n_mm)
+            counts, syncs = {}, []
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            with count_syncs(torch, dev, syncs):
+                m = tr.local_mapping_pre(m, slot, cfg, n_nb, device=dev, counts=counts)
+            _sync(torch, dev)
+            t2 = time.perf_counter()
+            trunc = tr.local_ba_truncation(m, cfg, slot).tolist()
+            n_local = int(tr._local_window_masks(m, cfg, slot)[0].sum())
+            _sync(torch, dev)
+            t3 = time.perf_counter()
+            with count_syncs(torch, dev, syncs):
+                m = tr.local_mapping_ba(m, slot, cfg, device=dev)
+            _sync(torch, dev)
+            t4 = time.perf_counter()
+            row.update(pre_ms=(t2 - t1) * 1e3, ba_ms=(t4 - t3) * 1e3, syncs_pre=syncs[0],
+                       syncs_ba=syncs[1], window_kfs=n_local, window_points=trunc[2],
+                       window_bird=trunc[3], dropped=trunc[0], dropped_bird=trunc[1],
+                       **{k: int(v) for k, v in counts.items()}, n_mp=int(m.n_mp),
+                       n_bp=int(m.n_bp), n_kf=int(m.kf_valid.sum()))
+            kf_rows.append(row)
+            print(f"[mapping] keyframe {len(kf_rows)} at frame {i} (slot {slot}, {n_in} inliers): "
+                  f"local_mapping_pre {row['pre_ms']:.1f} ms, local_mapping_ba "
+                  f"{row['ba_ms']:.1f} ms (synchronised); host syncs {row['syncs_pre']} + "
+                  f"{row['syncs_ba']}; window {n_local} keyframes, {trunc[2]} + {trunc[3]} points "
+                  f"(dropped by the caps {trunc[0]} + {trunc[1]}); points created "
+                  f"{row['created']}, merged {row['merged']}, culled {row['culled']} (bird "
+                  f"{row['bird_culled']}), evicted {row['evicted']}; map {row['n_kf']} keyframes, "
+                  f"{row['n_mp']} points, {row['n_bp']} bird points", flush=True)
+            Tcw = m.kf_Tcw[slot]
+            last_kf_slot, last_kf_frame = slot, i
+            assoc = tr.TrackObs(m.kf_mp[slot], m.kf_bird_mp[slot])
+        est[i] = Tcw.cpu()
+        last_f, last_Tcw = f, Tcw
+    _sync(torch, dev)
+    dt = time.perf_counter() - t_stream
+    launches = {c.__name__: c.launches for c in counters}
+    n_tracked = n_frames - MAP_KF1 - 1
+    print(f"[mapping] {n_tracked} frames tracked in {dt:.1f} s ({n_tracked / dt:.2f} frames/s "
+          f"with mapping), {len(kf_rows)} keyframes inserted by need_new_keyframe, "
+          f"{n_lost} frames under the loss gate", flush=True)
+    print(f"[mapping] per frame (motion-model matches, inliers, bird inliers): {scalars}",
+          flush=True)
+    print(f"[mapping] kernel launches over the stream: {json.dumps(launches)}", flush=True)
+    frames = sorted(est)
+    Twb = ipm.Twb_from_Twc(cfg.extrinsics, se3.inverse(torch.stack([est[i] for i in frames])))
+    ate = evaluate.ate_rmse_vs_gt(Twb.numpy(), seq.gt[frames])
+    print(f"[mapping] ATE {ate:.4f} m (RMSE over {len(frames)} frames' tracked poses, SE2-aligned, "
+          f"io/evaluate.py) over a {MAP_STEP * (n_frames - 1):.1f} m drive", flush=True)
+    if kf_rows:
+        med = lambda k: statistics.median(r[k] for r in kf_rows)
+        print(f"[mapping] per keyframe, median: local_mapping_pre {med('pre_ms'):.1f} ms, "
+              f"local_mapping_ba {med('ba_ms'):.1f} ms, host syncs {med('syncs_pre')} + "
+              f"{med('syncs_ba')}; rows {json.dumps(kf_rows)}", flush=True)
+
+    if not kf_rows:
+        fail("need_new_keyframe inserted no keyframe over the mapping stream")
+    if n_boot < 100 or sum(r["created"] for r in kf_rows) < 100:
+        fail("triangulation created too few points")
+    if n_lost:
+        fail(f"{n_lost} frames fell under the loss gate")
+    if not (math.isfinite(ate) and ate < ATE_BOUND):
+        fail(f"ATE {ate} m is not below {ATE_BOUND} m")
+    if any(launches[c.__name__] == 0 for c in counters):
+        fail(f"a kernel of the tracking path was never launched: {launches}")
+    if captured is None:
+        fail("the stream inserted fewer than 2 keyframes; nothing captured to check")
+
+    # --- one keyframe's mapping step: twice on the card, once on the CPU
+    m0, slot = captured
+    if profile and dev.type == "cuda":
+        profile_mapping(torch, lambda: tr.local_mapping_step(m0, slot, cfg, n_nb, device=dev))
+    if dev.type == "cuda":
+        runs = [tr.local_mapping_step(m0, slot, cfg, n_nb, device=dev) for _ in range(2)]
+        diff = [k for k, x, y in zip(m0._fields, *runs) if not torch.equal(x, y)]
+        if diff:
+            fail(f"two card runs of local_mapping_step differ in {diff}")
+        print(f"[mapping] local_mapping_step on keyframe 2 (slot {slot}), run twice on the card: "
+              "bit-identical in every field", flush=True)
+    if check_cpu:
+        got = tr.local_mapping_step(m0, slot, cfg, n_nb, device=dev)
+        t5 = time.perf_counter()
+        ref = tr.local_mapping_step(to_device(m0, torch.device("cpu")), slot, cfg, n_nb,
+                                    device="cpu")
+        t_cpu = time.perf_counter() - t5
+        kf_same, dT, counts, share, p99 = map_diff(torch, cfg, got, ref, slot)
+        print(f"[mapping] the same step on the CPU ({t_cpu:.1f} s): keyframes equal {kf_same}, "
+              f"pose diff {dT:.3g}, live points / observations / bird points card vs CPU "
+              f"{counts[0]}/{counts[1]}, {counts[2]}/{counts[3]}, {counts[4]}/{counts[5]}; "
+              f"{share:.4f} of the points at the same slot with the same observations, "
+              f"their reprojection difference in the new keyframe p99 {p99:.4f} px (bounds: "
+              "keyframes equal, pose diff <= 1e-3, counts within max(5, 1%), >= 0.98 at the "
+              "same slot, p99 <= 0.1 px)", flush=True)
+        near = lambda x, y: abs(x - y) <= max(5, 0.01 * y)
+        if not (kf_same and dT <= 1e-3 and near(counts[0], counts[1])
+                and near(counts[2], counts[3]) and near(counts[4], counts[5])
+                and share >= 0.98 and p99 <= 0.1):
+            fail("local_mapping_step on the card and on the CPU disagree")
+    return launches, ate, kf_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels and hold them against their plain versions only")
     ap.add_argument("--profile", action="store_true",
                     help="also print the profiled frame's op table")
+    ap.add_argument("--mapping-only", action="store_true",
+                    help="build the kernels and run the mapping phase only (no result lines)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -796,6 +1079,9 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
 
     cfg = SystemConfig()
+    if args.mapping_only:
+        phase_mapping(torch, cfg, dev, profile=args.profile)
+        return 0
     rows = phase_kernels(torch, cfg, dev)
     st = Stream(torch, cfg, dev, N_STREAM + N_PHASE + 2)
     rows.update(phase_pose_and_hamming(torch, cfg, dev, st))
@@ -804,6 +1090,7 @@ def main() -> int:
         launches, fps, activities = phase_slice(torch, cfg, dev, st, args.profile)
         print(f"[slice] per frame: {fps:.2f} frames/s, {activities} device activities, "
               f"{launches['pose_optimization'] / N_STREAM:g} pose kernel launches", flush=True)
+        phase_mapping(torch, cfg, dev, profile=args.profile)
     by_name = {"fast": "fast_detect_levels", "patch": "extract_patches",
                "match_dual": "fused_projection_match_dual", "match": "fused_projection_match",
                "pose_opt": "pose_optimization", "hamming": "hamming_matrix_packed",

@@ -1,5 +1,7 @@
-"""State carried between the JAX package and the port: its ``Frame`` and
-``MapState`` as numpy arrays to the port's tensors and back, and its config.
+"""State carried between the JAX package and the port: its ``Frame``,
+``MapState`` and any other NamedTuple of arrays (the bundle adjustment's
+``PointBlocks``, ``OdomEdges`` and ``BAResult``) as numpy arrays to the
+port's tensors and back, and its config.
 
 Three conversions need care:
 
@@ -56,33 +58,35 @@ def tensor_to_array(name: str, t: torch.Tensor) -> np.ndarray:
     return a
 
 
-def _from_numpy(cls, arrays, device):
+def from_numpy(cls, arrays, device=None):
+    """The port's NamedTuple ``cls`` from the JAX package's tuple of the same
+    name (a NamedTuple or a mapping of numpy arrays)."""
     dev = resolve_device(device)
     d = _fields(arrays)
     return cls(**{k: array_to_tensor(k, d[k], dev) for k in cls._fields})
 
 
-def _to_numpy(tup) -> dict:
+def to_numpy(tup) -> dict:
     return {k: tensor_to_array(k, v) for k, v in tup._asdict().items()}
 
 
 def frame_from_numpy(arrays, device=None) -> Frame:
     """A ``Frame`` from the JAX package's Frame fields (a NamedTuple or a
     mapping of numpy arrays)."""
-    return _from_numpy(Frame, arrays, device)
+    return from_numpy(Frame, arrays, device)
 
 
 def frame_to_numpy(frame: Frame) -> dict:
-    return _to_numpy(frame)
+    return to_numpy(frame)
 
 
 def map_state_from_numpy(arrays, device=None) -> MapState:
     """A ``MapState`` from the JAX package's MapState fields."""
-    return _from_numpy(MapState, arrays, device)
+    return from_numpy(MapState, arrays, device)
 
 
 def map_state_to_numpy(m: MapState) -> dict:
-    return _to_numpy(m)
+    return to_numpy(m)
 
 
 def config_from_dict(d: Mapping) -> cfg_mod.SystemConfig:

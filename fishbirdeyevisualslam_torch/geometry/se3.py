@@ -180,3 +180,27 @@ def log(T):
 def retract(T, xi):
     """Left-multiplicative update T <- exp(xi) * T (g2o VertexSE3Expmap::oplusImpl)."""
     return normalize(compose(exp(xi), T))
+
+
+def adjoint(T):
+    """6x6 adjoint in (omega, upsilon) ordering: [[R, 0], [[t]x R, R]]."""
+    R = quat_to_matrix(T[..., :4])
+    tR = skew(T[..., 4:]) @ R
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    return torch.cat([top, torch.cat([tR, R], dim=-1)], dim=-2)
+
+
+def relative_error(T_meas, T1, T2):
+    """Pose-graph residual ``log(T_meas^-1 * T1 * T2^-1)`` in (omega, upsilon)
+    (``EdgeSE3Quat::computeError``, ``include/OdomG2oTypeQuat.h:176-192``)."""
+    return log(compose(inverse(T_meas), compose(T1, inverse(T2))))
+
+
+def jr_inv_approx(e):
+    """The reference's ``EdgeSE3Quat::JRInv`` (``src/OdomG2oTypeQuat.cc:180-190``):
+    I + 0.5 [[skew(w), 0], [skew(v), skew(w)]] for e = (omega, upsilon)."""
+    Sw = skew(e[..., :3])
+    Sv = skew(e[..., 3:])
+    top = torch.cat([Sw, torch.zeros_like(Sw)], dim=-1)
+    J = torch.cat([top, torch.cat([Sv, Sw], dim=-1)], dim=-2)
+    return 0.5 * J + torch.eye(6, dtype=e.dtype, device=e.device).expand(J.shape)

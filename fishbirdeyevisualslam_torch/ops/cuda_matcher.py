@@ -199,13 +199,18 @@ _POPCOUNT8 = tuple(bin(i).count("1") for i in range(256))
 def hamming_matrix_packed_plain(desc_a, desc_b):
     """(Na, 8) x (Nb, 8) packed words -> (Na, Nb) f32 Hamming distances: XOR
     of each word pair, popcount by a 256-entry byte table."""
-    table = const(_POPCOUNT8, torch.int32, desc_a.device)
     na, nb = desc_a.shape[0], desc_b.shape[0]
     acc = torch.zeros((na, nb), dtype=torch.int32, device=desc_a.device)
     for w in range(desc_a.shape[1]):
-        x = torch.bitwise_xor(desc_a[:, w, None], desc_b[None, :, w]).contiguous()
-        acc += table[x.view(torch.uint8).long()].view(na, nb, 4).sum(-1, dtype=torch.int32)
+        acc += popcount32(torch.bitwise_xor(desc_a[:, w, None], desc_b[None, :, w]))
     return acc.to(torch.float32)
+
+
+def popcount32(x):
+    """Set bits of each int32 element, by a 256-entry byte table."""
+    table = const(_POPCOUNT8, torch.int32, x.device)
+    x = x.contiguous()
+    return table[x.view(torch.uint8).long()].view(x.shape + (4,)).sum(-1, dtype=torch.int32)
 
 
 def fused_masked_match_plain(desc_a, uv_a, desc_b, uv_b, valid_b, radius: float):

@@ -161,3 +161,148 @@ def scrub_stale_refs(m: MapState) -> MapState:
         n_mp=torch.sum(m.mp_valid.to(torch.int32)).to(torch.int32),
         n_bp=torch.sum(m.bp_valid.to(torch.int32)).to(torch.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Derived structures and the mapping stage's updates
+# ---------------------------------------------------------------------------
+
+
+def _obs_matrix(obs_kf, obs_ok, K: int):
+    """(K, P) f32 0/1: keyframe k observes landmark p in any of its slots."""
+    P, M = obs_kf.shape
+    ks = torch.arange(K, dtype=obs_kf.dtype, device=obs_kf.device)[:, None]
+    hit = torch.zeros((K, P), dtype=torch.bool, device=obs_kf.device)
+    for s in range(M):
+        hit = hit | ((obs_kf[:, s][None, :] == ks) & obs_ok[:, s][None, :])
+    return hit.to(torch.float32)
+
+
+def _shared_counts(A):
+    """(K, K) int32 A A^T with the diagonal zeroed.  The f32 product of 0/1
+    entries is exact below 2^24 shared landmarks."""
+    C = (A @ A.T).to(torch.int32)
+    return C - torch.diag(torch.diagonal(C))
+
+
+def covisibility_counts(m: MapState):
+    """(K, K) int32 shared front landmarks between keyframe pairs, the
+    covisibility weight of ``KeyFrame::UpdateConnections``; a landmark counts
+    once however many slots of a keyframe hold it."""
+    return _shared_counts(_obs_matrix(m.obs_kf, m.obs_valid & m.mp_valid[:, None], m.K))
+
+
+def bird_covisibility_counts(m: MapState):
+    """(K, K) shared bird landmarks (``KeyFrame::UpdateBirdConnections``,
+    ``src/KeyFrame.cc:418-562``)."""
+    return _shared_counts(_obs_matrix(m.bobs_kf, m.bobs_valid & m.bp_valid[:, None], m.K))
+
+
+def point_obs_count(m: MapState):
+    return torch.sum((m.obs_valid & m.mp_valid[:, None]).to(torch.int32), dim=1)
+
+
+def temporal_perm(m: MapState):
+    """(K,) keyframe slots in insertion order, live ones first: ``perm[r]`` is
+    the slot of the r-th oldest live keyframe (slot numbers carry no order
+    once slots recycle).  Ties among free slots keep slot order, as
+    ``jnp.argsort`` does."""
+    key = torch.where(m.kf_valid, m.kf_seq, torch.iinfo(torch.int32).max)
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
+def _oldest_observer(obs_kf, obs_valid, kf_valid, seq_of, big: int):
+    """Per landmark: the slot of its oldest live observer and whether it has one."""
+    K = kf_valid.shape[0]
+    okf = obs_kf.clamp(0, K - 1).long()
+    obs_seq = torch.where(obs_valid & kf_valid[okf], seq_of[okf], big)
+    best = torch.argmin(obs_seq, dim=1, keepdim=True)
+    return torch.gather(obs_kf, 1, best)[:, 0], torch.min(obs_seq, dim=1).values < big
+
+
+def reassign_orphan_refs(m: MapState) -> MapState:
+    """Re-home ``mp_ref_kf``/``bp_ref_kf`` whose reference keyframe died
+    (``KeyFrame::SetBadFlag``): to the oldest live observer, else to the
+    oldest live keyframe."""
+    K = m.K
+    big = torch.iinfo(torch.int32).max
+    seq_of = torch.where(m.kf_valid, m.kf_seq, big)
+    oldest_live = torch.argmin(seq_of).to(torch.int32)
+    cand, has = _oldest_observer(m.obs_kf, m.obs_valid, m.kf_valid, seq_of, big)
+    mp_ref = torch.where(m.kf_valid[m.mp_ref_kf.clamp(0, K - 1).long()], m.mp_ref_kf,
+                         torch.where(has, cand, oldest_live))
+    bcand, bhas = _oldest_observer(m.bobs_kf, m.bobs_valid, m.kf_valid, seq_of, big)
+    bp_ref = torch.where(m.kf_valid[m.bp_ref_kf.clamp(0, K - 1).long()], m.bp_ref_kf,
+                         torch.where(bhas, bcand, oldest_live))
+    return m._replace(mp_ref_kf=mp_ref.to(torch.int32), bp_ref_kf=bp_ref.to(torch.int32))
+
+
+def put_rows(x, idx, ok, values):
+    """``x`` with ``x[idx[r]] = values[r]`` for the rows r where ``ok``, and
+    nothing written elsewhere.  The other rows go to a spare row past the
+    end, which is dropped, so they can never collide with a real write (the
+    JAX package writes them to a real slot and restores its old value there,
+    and on the card repeated indices have no defined winner).  The ``ok`` rows'
+    indices must be distinct."""
+    n = x.shape[0]
+    buf = torch.cat([x, x[:1]])
+    buf[torch.where(ok, idx.long(), n)] = values.to(x.dtype)
+    return buf[:n]
+
+
+def reset_point_slots(m: MapState, dest, can, first_kf) -> MapState:
+    """Clear the per-point state of front slots being recycled: observation
+    rows, found/visible counters, scale range, birth keyframe, normal."""
+    B = dest.shape[0]
+    dev = dest.device
+    M = m.obs_kf.shape[1]
+    full = lambda v, dtype, *shape: torch.full((B,) + shape, v, dtype=dtype, device=dev)
+    first = torch.as_tensor(first_kf, dtype=torch.int32, device=dev).expand(B)
+    return m._replace(
+        obs_valid=put_rows(m.obs_valid, dest, can, full(False, torch.bool, M)),
+        mp_found=put_rows(m.mp_found, dest, can, full(1, torch.int32)),
+        mp_visible=put_rows(m.mp_visible, dest, can, full(1, torch.int32)),
+        mp_min_dist=put_rows(m.mp_min_dist, dest, can, full(0.0, torch.float32)),
+        mp_max_dist=put_rows(m.mp_max_dist, dest, can, full(1e9, torch.float32)),
+        mp_first_kf=put_rows(m.mp_first_kf, dest, can, first),
+        mp_normal=put_rows(m.mp_normal, dest, can, full(0.0, torch.float32, 3)),
+    )
+
+
+def _obs_slots(obs_valid, pt_idx, valid):
+    """Where a batch of new observations lands: each point's next slot after
+    its current fill, successive slots for repeated points in batch order.
+    Returns (flat index point * M + slot, ok) with ok false past the last slot."""
+    P, M = obs_valid.shape
+    safe = pt_idx.clamp(0, P - 1).long()
+    fill = torch.sum(obs_valid.to(torch.int32), dim=1)[safe]
+    same = (pt_idx[None, :] == pt_idx[:, None]) & valid[None, :] & valid[:, None]
+    rank = torch.sum(torch.tril(same, -1).to(torch.int32), dim=1)
+    ok = valid & (fill + rank < M)
+    return safe * M + (fill + rank).clamp(0, M - 1), ok
+
+
+def _add_obs(kf, feat, valid_t, pt_idx, kf_idx, feat_idx, valid):
+    P, M = kf.shape
+    flat, ok = _obs_slots(valid_t, pt_idx, valid)
+    B = pt_idx.shape[0]
+    put = lambda x, v: put_rows(x.reshape(P * M), flat, ok, v).reshape(P, M)
+    return (put(kf, kf_idx.expand(B)), put(feat, feat_idx.expand(B)),
+            put(valid_t, torch.ones(B, dtype=torch.bool, device=valid.device)))
+
+
+def add_observation(m: MapState, pt_idx, kf_idx, feat_idx, valid) -> MapState:
+    """Register a batch of (point, keyframe, feature) observations (B,): each
+    lands in the slot at its point's count of valid observations, repeated
+    points in successive slots in batch order (as the JAX package places
+    them: a point with a hole in its rows has that slot written over); one
+    past a point's last slot is dropped."""
+    obs_kf, obs_feat, obs_valid = _add_obs(m.obs_kf, m.obs_feat, m.obs_valid, pt_idx, kf_idx,
+                                           feat_idx, valid)
+    return m._replace(obs_kf=obs_kf, obs_feat=obs_feat, obs_valid=obs_valid)
+
+
+def add_bird_observation(m: MapState, pt_idx, kf_idx, feat_idx, valid) -> MapState:
+    bobs_kf, bobs_feat, bobs_valid = _add_obs(m.bobs_kf, m.bobs_feat, m.bobs_valid, pt_idx,
+                                              kf_idx, feat_idx, valid)
+    return m._replace(bobs_kf=bobs_kf, bobs_feat=bobs_feat, bobs_valid=bobs_valid)

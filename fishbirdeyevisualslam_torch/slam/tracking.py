@@ -1,7 +1,9 @@
-"""Per-frame tracking core — the port of the per-frame subset of
-``fishbirdeyevisualslam_tpu/slam/tracking.py``: ``track_frame_core`` and its
-callees (``TrackWithMotionModel``, ``TrackLocalMap`` and the bird matching of
-``src/Tracking.cc``).
+"""Tracking and local mapping — the port of
+``fishbirdeyevisualslam_tpu/slam/tracking.py`` but its initialization and
+relocalization: ``track_frame_core`` and its callees (``TrackWithMotionModel``,
+``TrackLocalMap`` and the bird matching of ``src/Tracking.cc``), and the
+keyframe policy, insertion and ``local_mapping_step`` (``LocalMapping.cc``:
+triangulation, fusion, culls, landmark statistics, local BA).
 
 Two routes, as in the JAX package: on a CUDA device the projection matches go
 through the fused matcher kernels (``ops/cuda_matcher.py``), with candidate
@@ -15,6 +17,7 @@ the host reads of a frame are those counts.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -26,11 +29,13 @@ from fishbirdeyevisualslam_torch.geometry import camera as cam_ops
 from fishbirdeyevisualslam_torch.geometry import ipm
 from fishbirdeyevisualslam_torch.geometry import odometry as odo
 from fishbirdeyevisualslam_torch.geometry import se3
-from fishbirdeyevisualslam_torch.ops import cuda_matcher, matcher
+from fishbirdeyevisualslam_torch.ops import cuda_matcher, matcher, vocab
 from fishbirdeyevisualslam_torch.slam import map_state as ms
-from fishbirdeyevisualslam_torch.slam.frame import Frame, inv_level_sigma2_lut
+from fishbirdeyevisualslam_torch.slam.frame import Frame, desc_pm1_from_packed, inv_level_sigma2_lut
 from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+from fishbirdeyevisualslam_torch.solvers.ba import OdomEdges, PointBlocks, bundle_adjust
 from fishbirdeyevisualslam_torch.solvers.pose_opt import BirdObs, FrontObs
+from fishbirdeyevisualslam_torch.solvers.triangulate import triangulate
 
 
 class TrackObs(NamedTuple):
@@ -480,3 +485,638 @@ def _track_frame_core(m, f, cfg: SystemConfig, Tcw_pred, cand_last, ref_kf, last
         torch.sum(m.kf_valid).to(i32),
     ])
     return TrackCoreOut(out2.Tcw, mp_fin, bp_fin, m, scalars)
+
+
+# ---------------------------------------------------------------------------
+# Keyframe insertion and local mapping (``CreateNewKeyFrame`` and the body of
+# ``LocalMapping::Run``).  Keyframe slots are host integers here: the caller
+# reads the slot once per keyframe, as ``SlamSystem._track_ok`` does.
+# ---------------------------------------------------------------------------
+
+
+def _set_row(x, i: int, v):
+    y = x.clone()
+    y[i] = v
+    return y
+
+
+def _slot_tensor(slot: int, dev):
+    """A keyframe slot as a 0-d int32 tensor, filled on ``dev`` (no copy)."""
+    return torch.full((), slot, dtype=torch.int32, device=dev)
+
+
+def _topk_stable(w, k: int):
+    """The ``k`` largest of ``w``, equal values in index order (the order of
+    ``jax.lax.top_k``; ``torch.topk`` promises none).  Returns (values, indices)."""
+    vals, idx = torch.sort(w, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def _write_kf(m: ms.MapState, slot: int, f: Frame, Tcw, is_init: bool, frame_id) -> ms.MapState:
+    """Write a keyframe into ``slot``.  Slots recycle, so the slot's
+    association rows are reset; callers fill them in afterwards."""
+    return m._replace(
+        kf_Tcw=_set_row(m.kf_Tcw, slot, Tcw),
+        kf_valid=_set_row(m.kf_valid, slot, True),
+        kf_is_init=_set_row(m.kf_is_init, slot, bool(is_init)),
+        kf_odom=_set_row(m.kf_odom, slot, f.odom),
+        kf_timestamp=_set_row(m.kf_timestamp, slot, f.timestamp),
+        kf_frame_id=_set_row(m.kf_frame_id, slot, frame_id),
+        kf_seq=_set_row(m.kf_seq, slot, m.kf_counter),
+        kf_uv=_set_row(m.kf_uv, slot, f.uv),
+        kf_octave=_set_row(m.kf_octave, slot, f.octave),
+        kf_desc=_set_row(m.kf_desc, slot, f.desc),
+        kf_kp_valid=_set_row(m.kf_kp_valid, slot, f.kp_valid),
+        kf_words=_set_row(m.kf_words, slot, vocab.word_ids(f.desc_pm1)),
+        kf_bird_cam=_set_row(m.kf_bird_cam, slot, f.bird_cam),
+        kf_bird_desc=_set_row(m.kf_bird_desc, slot, f.bird_desc),
+        kf_bird_octave=_set_row(m.kf_bird_octave, slot, f.bird_octave),
+        kf_bird_kp_valid=_set_row(m.kf_bird_kp_valid, slot, f.bird_kp_valid),
+        kf_mp=_set_row(m.kf_mp, slot, -1),
+        kf_bird_mp=_set_row(m.kf_bird_mp, slot, -1),
+        n_kf=torch.clamp(m.n_kf, min=slot + 1),
+        kf_counter=m.kf_counter + 1,
+    )
+
+
+def free_kf_slot(m: ms.MapState):
+    """The first free keyframe slot, whether one exists, and how many are free
+    (0-d tensors).  Culled slots are handed out again."""
+    free = ~m.kf_valid
+    slot = torch.argmax(free.to(torch.int32)).to(torch.int32)
+    return slot, torch.any(free), torch.sum(free.to(torch.int32)).to(torch.int32)
+
+
+def insert_keyframe(m: ms.MapState, f: Frame, assoc: TrackObs, Tcw, cfg: SystemConfig,
+                    frame_id, slot=None, device=None) -> ms.MapState:
+    """``CreateNewKeyFrame`` (``Tracking.cc:1542-1620``): write the keyframe,
+    register the frame's map-point associations as observations, and create
+    bird points from its unmatched bird keypoints (``CreateBirdPoints``,
+    ``:1622-1682``).  ``slot`` defaults to the first free slot (one host
+    read); callers make sure one exists."""
+    dev = resolve_device(device)
+    m, f, assoc = to_device(m, dev), to_device(f, dev), to_device(assoc, dev)
+    Tcw = Tcw.to(dev)
+    slot = int(free_kf_slot(m)[0] if slot is None else slot)
+    m = _write_kf(m, slot, f, Tcw, False, frame_id)
+    F = f.uv.shape[0]
+    FB = f.bird_uv.shape[0]
+    P = m.mp_pos.shape[0]
+    PB = m.bp_pos.shape[0]
+    i32 = torch.int32
+    slot_t = _slot_tensor(slot, dev)
+
+    pid = assoc.mp_idx.clamp(0, P - 1)
+    fok = (assoc.mp_idx >= 0) & f.kp_valid & m.mp_valid[pid.long()]
+    feats = torch.arange(F, dtype=i32, device=dev)
+    m = m._replace(kf_mp=_set_row(m.kf_mp, slot, torch.where(fok, assoc.mp_idx, -1)))
+    m = ms.add_observation(m, pid, slot_t, feats, fok)
+    m = m._replace(mp_found=m.mp_found.index_add(0, torch.where(fok, pid, P - 1).long(),
+                                                 fok.to(i32)))
+    if not cfg.flags.have_bird:
+        return m
+
+    bid = assoc.bp_idx.clamp(0, PB - 1)
+    bok = (assoc.bp_idx >= 0) & f.bird_kp_valid & m.bp_valid[bid.long()]
+    bfeats = torch.arange(FB, dtype=i32, device=dev)
+    m = ms.add_bird_observation(m, bid, slot_t, bfeats, bok)
+    new_bird = f.bird_kp_valid & (assoc.bp_idx < 0)
+    bp_world = se3.transform(se3.inverse(Tcw), f.bird_cam)
+    dest, can = ms.alloc_slots(m.bp_valid, new_bird)
+    m = ms.reset_bird_slots(m, dest, can)
+    put = functools.partial(ms.put_rows, idx=dest, ok=can)
+    m = m._replace(
+        bp_pos=put(m.bp_pos, values=bp_world),
+        bp_desc=put(m.bp_desc, values=f.bird_desc),
+        bp_desc_pm1=put(m.bp_desc_pm1, values=f.bird_desc_pm1),
+        bp_valid=put(m.bp_valid, values=torch.ones_like(can)),
+        bp_ref_kf=put(m.bp_ref_kf, values=slot_t.expand(FB)),
+        bp_birth=put(m.bp_birth, values=m.kf_seq[slot].expand(FB)),
+        n_bp=m.n_bp + torch.sum(can.to(i32)).to(i32),
+        kf_bird_mp=_set_row(m.kf_bird_mp, slot,
+                            torch.where(bok, assoc.bp_idx, torch.where(can, dest, -1))),
+    )
+    return ms.add_bird_observation(m, dest, slot_t, bfeats, can)
+
+
+def odom_chain_edges(m: ms.MapState, cfg: SystemConfig, member_mask) -> OdomEdges:
+    """Odometry SE3 edges between temporally consecutive members of
+    ``member_mask`` (chain, and skip-1 / skip-2 under ``tight_couple2``), in
+    insertion order so recycled slots chain correctly.  Without
+    ``tight_couple`` the edges exist but are all invalid (``Optimizer.cc:2419``)."""
+    ba, flags = cfg.ba, cfg.flags
+    K = m.K
+    dev = member_mask.device
+    perm = ms.temporal_perm(m).long()
+    specs = [(1, ba.odom_info_chain * ba.w_pose)]
+    if flags.tight_couple2:
+        specs += [(2, ba.odom_info_skip1), (3, ba.odom_info_skip2 * ba.w_pose)]
+    ei = torch.cat([perm[:-skip] for skip, _ in specs])
+    ej = torch.cat([perm[skip:] for skip, _ in specs])
+    einfo = torch.cat([torch.full((K - skip,), info, dtype=torch.float32, device=dev)
+                       for skip, info in specs])
+    ev = member_mask[ei] & member_mask[ej] & m.kf_valid[ei] & m.kf_valid[ej]
+    if not flags.tight_couple:
+        ev = torch.zeros_like(ev)
+    T_meas = odo.preintegrate_cam(cfg.extrinsics, m.kf_odom[ei], m.kf_odom[ej])
+    return OdomEdges(ei.to(torch.int32), ej.to(torch.int32), T_meas, einfo, ev)
+
+
+def _epipolar_line_dist(cam, Tcw1, Tcw2, uv1, uv2):
+    """(F1, F2) squared distance of each uv2 to the epipolar line of each uv1
+    (``CheckDistEpipolarLine``, ``ORBmatcher.cc:658-823``)."""
+    T12 = se3.compose(Tcw1, se3.inverse(Tcw2))          # cam2 -> cam1
+    R12 = se3.quat_to_matrix(T12[:4])
+    tx = se3.skew(T12[4:])
+    Kinv = const(((1.0 / cam.fx, 0.0, -cam.cx / cam.fx), (0.0, 1.0 / cam.fy, -cam.cy / cam.fy),
+                  (0.0, 0.0, 1.0)), torch.float32, Tcw1.device)
+    F12 = Kinv.T @ tx @ R12 @ Kinv                       # x1^T F12 x2 = 0
+    x1 = torch.cat([uv1, torch.ones_like(uv1[:, :1])], dim=-1)
+    x2 = torch.cat([uv2, torch.ones_like(uv2[:, :1])], dim=-1)
+    lines = x1 @ F12                                     # epipolar lines in image 2
+    num = torch.abs(lines @ x2.T)
+    den2 = lines[:, 0] ** 2 + lines[:, 1] ** 2
+    return num * num / torch.clamp(den2[:, None], min=1e-12)
+
+
+def triangulate_new_points(m: ms.MapState, new_kf: int, ref_kf: int, cfg: SystemConfig,
+                           enabled=True) -> ms.MapState:
+    """``LocalMapping::CreateNewMapPoints`` (``LocalMapping.cc:231-476``)
+    against one neighbour: match the new keyframe's unassociated features to
+    the neighbour's (rotation-compensated 120 px window, epipolar gate, ratio
+    0.8), triangulate, and allocate the accepted points."""
+    F = m.kf_uv.shape[1]
+    P = m.mp_pos.shape[0]
+    cam = cfg.camera
+    d1 = desc_pm1_from_packed(m.kf_desc[new_kf])
+    d2 = desc_pm1_from_packed(m.kf_desc[ref_kf])
+    un1 = m.kf_kp_valid[new_kf] & (m.kf_mp[new_kf] < 0)
+    un2 = m.kf_kp_valid[ref_kf] & (m.kf_mp[ref_kf] < 0)
+    # where each feature lands in the neighbour at infinite depth: K R K^-1
+    R_rel = se3.quat_to_matrix(m.kf_Tcw[ref_kf, :4]) @ se3.quat_to_matrix(m.kf_Tcw[new_kf, :4]).T
+    uv1 = m.kf_uv[new_kf]
+    rays = torch.stack([(uv1[:, 0] - cam.cx) / cam.fx, (uv1[:, 1] - cam.cy) / cam.fy,
+                        torch.ones_like(uv1[:, 0])], dim=-1) @ R_rel.T
+    z = torch.where(torch.abs(rays[:, 2]) < 1e-6, 1e-6, rays[:, 2])
+    uv_pred = torch.stack([cam.fx * rays[:, 0] / z + cam.cx,
+                           cam.fy * rays[:, 1] / z + cam.cy], dim=-1)
+    compat = matcher.window_mask(uv_pred, m.kf_uv[ref_kf], 120.0)
+    compat = compat & un1[:, None] & un2[None, :] & (rays[:, 2] > 0)[:, None]
+    lut = inv_level_sigma2_lut(cfg, uv1.device)
+    sigma2_ref = 1.0 / lut[m.kf_octave[ref_kf].clamp(0, lut.shape[0] - 1).long()]
+    ep2 = _epipolar_line_dist(cam, m.kf_Tcw[new_kf], m.kf_Tcw[ref_kf], uv1, m.kf_uv[ref_kf])
+    compat = compat & (ep2 < 3.84 * sigma2_ref[None, :]) & enabled
+    res = matcher.match(d1, d2, compat, max_dist=float(cfg.matcher.th_low), ratio=0.8)
+    res = matcher.resolve_duplicates(res, F)
+    f2 = res.idx.clamp(0, F - 1)
+    tri = triangulate(cam, m.kf_Tcw[new_kf], m.kf_Tcw[ref_kf], uv1,
+                      m.kf_uv[ref_kf][f2.long()], max_reproj_err=5.991,
+                      min_parallax_cos=0.9998)
+    dest, can = ms.alloc_slots(m.mp_valid, res.ok & tri.valid)
+    m = ms.reset_point_slots(m, dest, can, m.kf_seq[new_kf])
+    put = functools.partial(ms.put_rows, idx=dest, ok=can)
+    kf_mp = m.kf_mp.clone()
+    kf_mp[new_kf] = torch.where(can, dest, m.kf_mp[new_kf])
+    kf_mp[ref_kf] = ms.put_rows(m.kf_mp[ref_kf], f2, can, dest)
+    m = m._replace(
+        mp_pos=put(m.mp_pos, values=tri.Xw),
+        mp_desc=put(m.mp_desc, values=m.kf_desc[new_kf]),
+        mp_desc_pm1=put(m.mp_desc_pm1, values=d1),
+        mp_valid=put(m.mp_valid, values=torch.ones_like(can)),
+        mp_ref_kf=put(m.mp_ref_kf, values=torch.full((F,), new_kf, dtype=torch.int32,
+                                                     device=can.device)),
+        n_mp=m.n_mp + torch.sum(can.to(torch.int32)).to(torch.int32),
+        kf_mp=kf_mp,
+    )
+    feats = torch.arange(F, dtype=torch.int32, device=can.device)
+    m = ms.add_observation(m, dest, _slot_tensor(new_kf, can.device), feats, can)
+    return ms.add_observation(m, dest, _slot_tensor(ref_kf, can.device), f2, can)
+
+
+def _mask_of(mask_k, idx):
+    """``mask_k[idx]`` for keyframe indices, out-of-range ones clamped."""
+    return mask_k[idx.clamp(0, mask_k.shape[0] - 1).long()]
+
+
+def _local_window_masks(m: ms.MapState, cfg: SystemConfig, center_kf: int):
+    """The covisibility window of ``center_kf``: (is_local (K,), local_idx
+    (L,), pt_in (P,), bpt_in (PB,), n_lobs (P,), bn_lobs (PB,), c_obs (P,),
+    bc_obs (PB,)): the keyframes the local BA optimises, the landmarks they
+    observe, how many local observations each has and whether the centre
+    keyframe is one of them."""
+    K = m.K
+    dev = m.kf_valid.device
+    C = ms.covisibility_counts(m)
+    w = torch.where(m.kf_valid, C[center_kf], -1)
+    w[center_kf] = torch.iinfo(torch.int32).max
+    _, local_idx = _topk_stable(w, min(cfg.capacity.max_local_kfs, K))
+    is_local = torch.zeros(K, dtype=torch.bool, device=dev)
+    is_local[local_idx] = True
+    is_local = is_local & m.kf_valid & (w > 0)
+    is_local[center_kf] = True
+    n_lobs = torch.sum((_mask_of(is_local, m.obs_kf) & m.obs_valid).to(torch.int32), dim=1)
+    bn_lobs = torch.sum((_mask_of(is_local, m.bobs_kf) & m.bobs_valid).to(torch.int32), dim=1)
+    c_obs = torch.any((m.obs_kf == center_kf) & m.obs_valid, dim=1)
+    bc_obs = torch.any((m.bobs_kf == center_kf) & m.bobs_valid, dim=1)
+    return (is_local, local_idx.to(torch.int32), (n_lobs > 0) & m.mp_valid,
+            (bn_lobs > 0) & m.bp_valid, n_lobs, bn_lobs, c_obs, bc_obs)
+
+
+def _priority_packed_select(in_mask, n_lobs, center_obs, cap: int):
+    """The first ``cap`` landmark slots by constraint strength: in the window
+    first, seen by the centre keyframe first, then most local observations,
+    then index, by one sort of packed (priority, index) keys.  Returns
+    (sel (cap,) int32, valid (cap,) bool)."""
+    N = in_mask.shape[0]
+    idx = torch.arange(N, dtype=torch.int32, device=in_mask.device)
+    prio = torch.where(in_mask, (~center_obs).to(torch.int32) * 256
+                       + torch.clamp(256 - n_lobs, 0, 255), 1023)
+    sel = (torch.sort(prio * N + idx).values[:cap] % N).to(torch.int32)
+    return sel, in_mask[sel.long()]
+
+
+def local_ba_truncation(m: ms.MapState, cfg: SystemConfig, center_kf: int):
+    """(front points dropped, bird points dropped, front points in the window,
+    bird points in the window): the window's landmarks beyond
+    ``max_local_points`` / ``max_local_bird_points`` that ``local_ba`` leaves out."""
+    cap = cfg.capacity
+    _, _, pt_in, bpt_in = _local_window_masks(m, cfg, center_kf)[:4]
+    n_pt = torch.sum(pt_in.to(torch.int32))
+    n_bpt = torch.sum(bpt_in.to(torch.int32))
+    PL = min(cap.max_local_points, m.mp_pos.shape[0])
+    PBL = min(cap.max_local_bird_points, m.bp_pos.shape[0])
+    return torch.stack([torch.clamp(n_pt - PL, min=0), torch.clamp(n_bpt - PBL, min=0),
+                        n_pt, n_bpt])
+
+
+def _blocks(lut, pos, sel, pval, obs_kf, obs_feat, obs_valid, inv, LC: int, meas, octave):
+    """PointBlocks of the landmarks ``sel`` in the compact keyframe space."""
+    s = sel.long()
+    okf, ofeat = obs_kf[s].long(), obs_feat[s].long()
+    kf_c = inv[okf]
+    valid_c = obs_valid[s] & (kf_c < LC)
+    oct_ = octave[okf, ofeat].clamp(0, lut.shape[0] - 1).long()
+    return PointBlocks(Xw=pos[s], kf_idx=kf_c.clamp(0, LC), meas=meas[okf, ofeat],
+                       inv_sigma2=lut[oct_], valid=valid_c, point_valid=pval)
+
+
+def local_ba(m: ms.MapState, cfg: SystemConfig, center_kf: int) -> ms.MapState:
+    """``LocalBundleAdjustmentWithOdom`` (``Optimizer.cc:2137-2495``) over the
+    covisibility window of ``center_kf``: window keyframes optimised (``isInit``
+    ones fixed), the other observers fixed, front, bird and odometry factors.
+    The problem is compacted first to ``max_local_kfs`` + ``max_local_observers``
+    keyframes (+ a fixed dummy) and ``max_local_points`` /
+    ``max_local_bird_points`` landmarks, the strongest first.  Results are
+    written back to the selected rows only."""
+    cap = cfg.capacity
+    K = m.K
+    dev = m.kf_valid.device
+    (is_local, local_idx, pt_in, bpt_in,
+     n_lobs, bn_lobs, c_obs, bc_obs) = _local_window_masks(m, cfg, center_kf)
+    L = local_idx.shape[0]
+    obs_cnt = torch.zeros(K, dtype=torch.int32, device=dev).index_add(
+        0, m.obs_kf.reshape(-1).long(), (m.obs_valid & pt_in[:, None]).reshape(-1).to(torch.int32))
+    observer = (obs_cnt > 0) & m.kf_valid
+    fixed_full = (observer & ~is_local) | (is_local & m.kf_is_init)
+
+    O = min(cap.max_local_observers, K)
+    LC = L + O
+    obs_rank = torch.where(observer & ~is_local, obs_cnt, -1)
+    ranks, obs_idx = _topk_stable(obs_rank, O)
+    sel = torch.cat([local_idx, obs_idx.to(torch.int32)])
+    sel_ok = torch.cat([is_local[local_idx.long()], ranks > 0])
+    arange_lc = torch.arange(LC, dtype=torch.int32, device=dev)
+    inv = ms.put_rows(torch.full((K,), LC, dtype=torch.int32, device=dev), sel, sel_ok, arange_lc)
+    s = sel.long()
+    poses_c = torch.cat([m.kf_Tcw[s], se3.identity(device=dev)[None]])
+    fixed_c = torch.cat([fixed_full[s] | ~sel_ok, torch.ones(1, dtype=torch.bool, device=dev)])
+
+    lut = inv_level_sigma2_lut(cfg, dev)
+    psel, pval = _priority_packed_select(pt_in, n_lobs, c_obs,
+                                         min(cap.max_local_points, m.mp_pos.shape[0]))
+    front = _blocks(lut, m.mp_pos, psel, pval, m.obs_kf, m.obs_feat, m.obs_valid, inv, LC,
+                    m.kf_uv, m.kf_octave)
+    bsel, bval = _priority_packed_select(bpt_in, bn_lobs, bc_obs,
+                                         min(cap.max_local_bird_points, m.bp_pos.shape[0]))
+    bird = _blocks(lut, m.bp_pos, bsel, bval, m.bobs_kf, m.bobs_feat, m.bobs_valid, inv, LC,
+                   m.kf_bird_cam, m.kf_bird_octave)
+    oe = odom_chain_edges(m, cfg, is_local)
+    ei_c, ej_c = inv[oe.i.long()], inv[oe.j.long()]
+    odom_edges = OdomEdges(ei_c.clamp(0, LC), ej_c.clamp(0, LC), oe.T_meas, oe.info,
+                           oe.valid & (ei_c < LC) & (ej_c < LC))
+
+    out = bundle_adjust(cfg.camera, cfg.ba, poses_c, fixed_c, front, bird, odom_edges)
+    upd_kf = sel_ok & ~fixed_full[s]
+    ps, bs = psel.long(), bsel.long()
+    return m._replace(
+        kf_Tcw=ms.put_rows(m.kf_Tcw, sel, upd_kf, out.poses[:LC]),
+        mp_pos=ms.put_rows(m.mp_pos, psel, pval, out.front_Xw),
+        bp_pos=ms.put_rows(m.bp_pos, bsel, bval, out.bird_Xw),
+        obs_valid=m.obs_valid.index_copy(0, ps, torch.where(front.valid, out.front_inlier,
+                                                              m.obs_valid[ps])),
+        bobs_valid=m.bobs_valid.index_copy(0, bs, torch.where(bird.valid, out.bird_inlier,
+                                                                m.bobs_valid[bs])),
+    )
+
+
+def fuse_neighbors(m: ms.MapState, new_kf: int, neighbor_kf: int, cfg: SystemConfig,
+                   enabled=True) -> ms.MapState:
+    """``LocalMapping::SearchInNeighbors`` (``LocalMapping.cc:478-558``) in one
+    direction: project the new keyframe's points into the neighbour and match
+    in a 4 px window.  A match on a free feature registers the observation; a
+    match on a feature holding another point merges the two
+    (``MapPoint::Replace``, ``MapPoint.cc:177``): the one with fewer
+    observations is redirected to the other in every ``kf_mp`` entry and
+    retired.  A point that is the loser of more than one merge is left alone."""
+    F = m.kf_uv.shape[1]
+    P = m.mp_pos.shape[0]
+    dev = m.kf_valid.device
+    i32 = torch.int32
+    row = m.kf_mp[new_kf]
+    pid = row.clamp(0, P - 1)
+    pl = pid.long()
+    has_pt = (row >= 0) & m.mp_valid[pl] & enabled
+    pc = se3.transform(m.kf_Tcw[neighbor_kf], m.mp_pos[pl])
+    uv_proj = cam_ops.project_pinhole(cfg.camera, pc)
+    vis = has_pt & (pc[:, 2] > 0.1)
+    compat = matcher.window_mask(uv_proj, m.kf_uv[neighbor_kf], 4.0)
+    compat = compat & vis[:, None] & m.kf_kp_valid[neighbor_kf][None, :]
+    res = matcher.match(m.mp_desc_pm1[pl], desc_pm1_from_packed(m.kf_desc[neighbor_kf]), compat,
+                        max_dist=float(cfg.matcher.th_low))
+    res = matcher.resolve_duplicates(res, F)
+    ok = res.ok & vis
+    feat_nb = res.idx.clamp(0, F - 1)
+    nb_pt = m.kf_mp[neighbor_kf][feat_nb.long()]
+    free_hit = ok & (nb_pt < 0)
+    dup_hit = ok & (nb_pt >= 0) & (nb_pt != pid)
+    nb_t = _slot_tensor(neighbor_kf, dev)
+
+    m = ms.add_observation(m, pid, nb_t, feat_nb, free_hit)
+    m = m._replace(kf_mp=_set_row(m.kf_mp, neighbor_kf,
+                                  ms.put_rows(m.kf_mp[neighbor_kf], feat_nb, free_hit, pid)))
+
+    nobs = ms.point_obs_count(m)
+    a, b = pid, nb_pt.clamp(0, P - 1)
+    a_wins = nobs[a.long()] >= nobs[b.long()]
+    winner = torch.where(a_wins, a, b)
+    loser = torch.where(a_wins, b, a)
+    do_merge = dup_hit & m.mp_valid[a.long()] & m.mp_valid[b.long()]
+    # redirect table: applied only where exactly one merge names the loser
+    mf = do_merge.to(i32)
+    tgt = torch.where(do_merge, loser, 0).long()
+    cnt = torch.zeros(P, dtype=i32, device=dev).index_add(0, tgt, mf)
+    wsum = torch.zeros(P, dtype=i32, device=dev).index_add(0, tgt, winner * mf)
+    unique = cnt == 1
+    redirect = torch.where(unique, wsum, torch.arange(P, dtype=i32, device=dev))
+    do_merge = do_merge & unique[loser.long()]
+    kf_mp = torch.where(m.kf_mp >= 0, redirect[m.kf_mp.clamp(0, P - 1).long()], -1)
+    lose_mask = ms.put_rows(torch.zeros(P, dtype=torch.bool, device=dev), loser, do_merge,
+                            torch.ones_like(do_merge))
+    mp_valid = m.mp_valid & ~lose_mask
+    m = m._replace(kf_mp=kf_mp, mp_valid=mp_valid, obs_valid=m.obs_valid & mp_valid[:, None])
+    # the winner gains the neighbour's feature when it was the new keyframe's point
+    return ms.add_observation(m, winner, nb_t, feat_nb, do_merge & a_wins)
+
+
+def _top_covis_neighbors(m: ms.MapState, new_kf: int, n_neighbors: int):
+    """The ``n_neighbors`` most covisible keyframes of ``new_kf``
+    (``GetBestCovisibilityKeyFrames``), equal weights in slot order: (slots
+    (N,) int32, valid (N,) bool), a neighbour needing one shared point."""
+    K = m.K
+    dev = m.kf_valid.device
+    C = ms.covisibility_counts(m)
+    w = torch.where(m.kf_valid & (torch.arange(K, device=dev) != new_kf), C[new_kf], -1)
+    k = min(n_neighbors, K)
+    ww, nb = _topk_stable(w, k)
+    pad = n_neighbors - k
+    if pad:
+        nb = torch.cat([nb, torch.zeros(pad, dtype=nb.dtype, device=dev)])
+        ww = torch.cat([ww, torch.full((pad,), -1, dtype=ww.dtype, device=dev)])
+    return nb.to(torch.int32), ww > 0
+
+
+def _enabled_neighbors(m: ms.MapState, new_kf: int, n_neighbors: int):
+    """The enabled neighbours as host integers, best first (one host read)."""
+    nb, ok = _top_covis_neighbors(m, new_kf, n_neighbors)
+    slots, oks = torch.stack([nb, ok.to(torch.int32)]).tolist()
+    return [s for s, o in zip(slots, oks) if o], len(slots)
+
+
+def local_mapping_triangulate(m: ms.MapState, new_kf: int, cfg: SystemConfig,
+                              n_neighbors: int) -> ms.MapState:
+    """``CreateNewMapPoints`` over the top covisible neighbours, best first;
+    a feature matched against one neighbour is no longer free for the next.
+    A disabled neighbour changes nothing (every write is gated by its match),
+    so only the enabled ones run."""
+    for nb in _enabled_neighbors(m, new_kf, n_neighbors)[0]:
+        m = triangulate_new_points(m, new_kf, nb, cfg)
+    return m
+
+
+def local_mapping_fuse(m: ms.MapState, new_kf: int, cfg: SystemConfig,
+                       n_neighbors: int) -> ms.MapState:
+    """``SearchInNeighbors`` over the top covisible neighbours, both directions
+    (the new keyframe's points into each neighbour, then the neighbour's into
+    the new keyframe).  A disabled neighbour's only effect is to drop the
+    observations of retired points, which is applied in its place."""
+    nbs, n = _enabled_neighbors(m, new_kf, n_neighbors)
+    for nb in nbs:
+        m = fuse_neighbors(m, new_kf, nb, cfg)
+        m = fuse_neighbors(m, nb, new_kf, cfg)
+    if len(nbs) < n:
+        m = m._replace(obs_valid=m.obs_valid & m.mp_valid[:, None])
+    return m
+
+
+def relieve_point_pressure(m: ms.MapState, cfg: SystemConfig, center_kf: int) -> ms.MapState:
+    """Landmark eviction under capacity pressure: when fewer than 1/16 of the
+    slots are free, retire the eighth of the landmarks outside the covisibility
+    window of ``center_kf`` with the fewest observations, oldest first."""
+    _, _, pt_in, bpt_in = _local_window_masks(m, cfg, center_kf)[:4]
+
+    def relieve(valid, in_window, nobs, birth):
+        n = valid.shape[0]
+        need = torch.sum((~valid).to(torch.int32)) < n // 16
+        evictable = valid & ~in_window
+        score = torch.where(evictable, nobs.to(torch.float32) * 1e6 + birth.to(torch.float32),
+                            torch.inf)
+        k = n // 8
+        kth = torch.sort(score).values[k - 1]
+        return valid & ~(evictable & (score <= kth) & need)
+
+    mp_valid = relieve(m.mp_valid, pt_in, ms.point_obs_count(m), m.mp_first_kf)
+    bnobs = torch.sum((m.bobs_valid & m.bp_valid[:, None]).to(torch.int32), dim=1)
+    bp_valid = relieve(m.bp_valid, bpt_in, bnobs, m.bp_birth)
+    n_evicted = (torch.sum((m.mp_valid & ~mp_valid).to(torch.int32))
+                 + torch.sum((m.bp_valid & ~bp_valid).to(torch.int32)))
+    m = m._replace(mp_valid=mp_valid, bp_valid=bp_valid,
+                   obs_valid=m.obs_valid & mp_valid[:, None],
+                   bobs_valid=m.bobs_valid & bp_valid[:, None],
+                   n_pressure_evicted=(m.n_pressure_evicted + n_evicted).to(torch.int32))
+    return ms.scrub_stale_refs(m)
+
+
+def update_point_stats(m: ms.MapState, cfg: SystemConfig) -> ms.MapState:
+    """``MapPoint::ComputeDistinctiveDescriptors`` + ``UpdateNormalAndDepth``
+    (``MapPoint.cc:242,330-399``): the descriptor becomes the observation
+    descriptor with the least median Hamming distance to the others, the
+    normal the mean viewing direction, and the scale range follows the
+    reference keyframe's observation."""
+    P, M = m.obs_kf.shape
+    K = m.K
+    v = m.obs_valid & m.mp_valid[:, None]
+    okf, ofeat = m.obs_kf.clamp(0, K - 1).long(), m.obs_feat.long()
+    desc = m.kf_desc[okf, ofeat]                                     # (P, M, 8)
+    d = torch.zeros((P, M, M), dtype=torch.int32, device=desc.device)
+    for w in range(desc.shape[-1]):
+        d += cuda_matcher.popcount32(torch.bitwise_xor(desc[:, :, None, w], desc[:, None, :, w]))
+    d = torch.where(v[:, :, None] & v[:, None, :], d, 1 << 14)
+    nv = torch.sum(v.to(torch.int32), dim=-1)
+    k = torch.clamp(nv // 2, 0, M - 1).long()
+    med = torch.gather(torch.sort(d, dim=-1).values, 2, k[:, None, None].expand(P, M, 1))[..., 0]
+    med = torch.where(v, med, 1 << 15)
+    rows = torch.arange(P, device=desc.device)
+    new_desc = desc[rows, torch.argmin(med, dim=-1)]
+    has_obs = nv > 0
+    Twc = se3.inverse(m.kf_Tcw)
+    rays = m.mp_pos[:, None, :] - Twc[okf][..., 4:]
+    rays = rays / torch.clamp(torch.linalg.vector_norm(rays, dim=-1, keepdim=True), min=1e-9)
+    normal = torch.sum(torch.where(v[..., None], rays, 0.0), dim=1)
+    normal = normal / torch.clamp(torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-9)
+    ref = m.mp_ref_kf.clamp(0, K - 1).long()
+    dist_ref = torch.linalg.vector_norm(m.mp_pos - Twc[ref][:, 4:], dim=-1)
+    is_ref = (m.obs_kf == ref[:, None]) & v
+    slot = torch.where(torch.any(is_ref, dim=1), torch.argmax(is_ref.to(torch.int32), dim=1),
+                       torch.argmax(v.to(torch.int32), dim=1))
+    oct_ref = m.kf_octave[okf[rows, slot], ofeat[rows, slot]]
+    sf = cfg.orb.scale_factor
+    max_dist = dist_ref * torch.exp(oct_ref.to(torch.float32) * math.log(sf))
+    min_dist = max_dist / (sf ** (cfg.orb.n_levels - 1))
+    col = has_obs[:, None]
+    return m._replace(
+        mp_desc=torch.where(col, new_desc, m.mp_desc),
+        mp_desc_pm1=torch.where(col, desc_pm1_from_packed(new_desc), m.mp_desc_pm1),
+        mp_normal=torch.where(col, normal, m.mp_normal),
+        mp_min_dist=torch.where(has_obs, min_dist, m.mp_min_dist),
+        mp_max_dist=torch.where(has_obs, max_dist, m.mp_max_dist),
+    )
+
+
+def cull_points(m: ms.MapState, cfg: SystemConfig) -> ms.MapState:
+    """``MapPointCulling`` (``LocalMapping.cc:194-229``): drop points found in
+    fewer than a quarter of the frames that saw them, and points with fewer
+    than 2 observations two keyframes after their birth."""
+    ratio = m.mp_found.to(torch.float32) / torch.clamp(m.mp_visible.to(torch.float32), min=1.0)
+    mature = (m.kf_counter - 1 - m.mp_first_kf) >= 2
+    keep = m.mp_valid & (ratio >= 0.25) & (~mature | (ms.point_obs_count(m) >= 2))
+    return ms.scrub_stale_refs(m._replace(mp_valid=keep, obs_valid=m.obs_valid & keep[:, None]))
+
+
+def _drop_keyframes(m: ms.MapState, keep) -> ms.MapState:
+    K = m.K
+    return m._replace(kf_valid=keep, kf_seq=torch.where(keep, m.kf_seq, -1),
+                      obs_valid=m.obs_valid & _mask_of(keep, m.obs_kf),
+                      bobs_valid=m.bobs_valid & _mask_of(keep, m.bobs_kf))
+
+
+def cull_keyframes(m: ms.MapState, cfg: SystemConfig) -> ms.MapState:
+    """``LocalMapping::KeyFrameCulling`` (``LocalMapping.cc:656-729``): retire
+    at most one keyframe whose tracked points are >= 90% seen by 3 other
+    keyframes; the first two, the 3 newest and ``isInit`` keyframes are kept."""
+    K = m.K
+    P = m.mp_pos.shape[0]
+    nobs = ms.point_obs_count(m)
+    pid = m.kf_mp.clamp(0, P - 1).long()
+    tracked = (m.kf_mp >= 0) & m.mp_valid[pid]
+    n_tracked = torch.sum(tracked.to(torch.int32), dim=1)
+    n_red = torch.sum((tracked & (nobs[pid] >= 4)).to(torch.int32), dim=1)
+    frac = n_red / torch.clamp(n_tracked, min=1)
+    cullable = m.kf_valid & (frac > 0.9) & (n_tracked > 10) & (m.kf_seq >= 2) \
+        & (m.kf_seq < m.kf_counter - 3) & ~m.kf_is_init
+    worst = torch.argmax(torch.where(cullable, frac, -1.0))
+    cullable = cullable & (torch.arange(K, device=worst.device) == worst)
+    return ms.reassign_orphan_refs(_drop_keyframes(m, m.kf_valid & ~cullable))
+
+
+def force_evict_keyframe(m: ms.MapState, cfg: SystemConfig) -> ms.MapState:
+    """Keyframe eviction under capacity pressure: with every slot live, retire
+    the eligible keyframe with the weakest covisibility ties (the oldest among
+    equals); the first two, ``isInit`` ones and the 5 newest are kept."""
+    K = m.K
+    C = ms.covisibility_counts(m) + ms.bird_covisibility_counts(m)
+    ties = torch.sum(torch.where(m.kf_valid[None, :], C, 0), dim=1)
+    eligible = m.kf_valid & (m.kf_seq >= 2) & (m.kf_seq < m.kf_counter - 5) & ~m.kf_is_init
+    score = ties.to(torch.float32) * float(K) + m.kf_seq.to(torch.float32) / float(1 << 20)
+    victim = torch.argmin(torch.where(eligible, score, torch.inf))
+    evict = eligible & (torch.arange(K, device=victim.device) == victim)
+    return ms.reassign_orphan_refs(ms.scrub_stale_refs(_drop_keyframes(m, m.kf_valid & ~evict)))
+
+
+def need_new_keyframe(cfg: SystemConfig, *, localization_only: bool, n_kfs: int, frame_id: int,
+                      last_kf_frame_id: int, last_reloc_frame_id: int, n_inliers: int,
+                      n_ref_matches: int, mapping_idle: bool, n_bird_matched: int = 0,
+                      n_ref_bird: int = 0):
+    """``Tracking::NeedNewKeyFrame`` (``Tracking.cc:1444-1540``) as a host
+    decision: returns ``(need, interrupt_ba)``.  Insert when (max frames since
+    the last keyframe, or min frames and mapping idle) and inliers < 0.9 x the
+    reference keyframe's points and > 15, if mapping is idle; otherwise ask
+    for an InterruptBA.  Refused in localization-only mode and within max
+    frames of a relocalisation once the map has more than max frames
+    keyframes.  The bird trigger (matched bird points < 0.35 x the reference
+    keyframe's) is left out of the decision, as the reference leaves it."""
+    if localization_only:
+        return False, False
+    max_frames = int(cfg.tracking.max_frames_between_kf)
+    min_frames = int(cfg.tracking.min_frames_between_kf)
+    if frame_id < last_reloc_frame_id + max_frames and n_kfs > max_frames:
+        return False, False
+    c1a = frame_id >= last_kf_frame_id + max_frames
+    c1b = frame_id >= last_kf_frame_id + max(1, min_frames) and mapping_idle
+    c2 = n_inliers < n_ref_matches * 0.9 and n_inliers > 15
+    if (c1a or c1b) and c2:
+        return (True, False) if mapping_idle else (False, True)
+    return False, False
+
+
+def local_mapping_pre(m: ms.MapState, new_kf: int, cfg: SystemConfig, n_neighbors: int,
+                      device=None, counts: dict | None = None) -> ms.MapState:
+    """The mapping stages before local BA: point-pressure relief, triangulation,
+    fusion, point culls and landmark statistics.  With ``counts`` (a dict), it
+    receives 0-d tensors, read by the caller when it likes: front points
+    ``evicted``, ``created``, ``merged`` and ``culled``, bird points ``bird_culled``."""
+    m = to_device(m, resolve_device(device))
+    n = lambda valid: torch.sum(valid.to(torch.int32))
+    stages = {}
+    n0 = n(m.mp_valid)
+    if cfg.tracking.point_pressure_valve:
+        m = relieve_point_pressure(m, cfg, new_kf)
+    stages["evicted"] = n0 - n(m.mp_valid)
+    n1 = m.n_mp
+    m = local_mapping_triangulate(m, new_kf, cfg, n_neighbors)
+    stages["created"] = m.n_mp - n1
+    n2 = n(m.mp_valid)
+    m = local_mapping_fuse(m, new_kf, cfg, n_neighbors)
+    stages["merged"] = n2 - n(m.mp_valid)
+    n3, nb3 = n(m.mp_valid), n(m.bp_valid)
+    m = cull_points(m, cfg)
+    m = cull_bird_points(m, cfg, m.kf_Tcw[new_kf])
+    stages["culled"], stages["bird_culled"] = n3 - n(m.mp_valid), nb3 - n(m.bp_valid)
+    if counts is not None:
+        counts.update(stages)
+    return update_point_stats(m, cfg)
+
+
+def local_mapping_ba(m: ms.MapState, new_kf: int, cfg: SystemConfig, device=None) -> ms.MapState:
+    """Local BA, then keyframe culling."""
+    m = to_device(m, resolve_device(device))
+    return cull_keyframes(local_ba(m, cfg, new_kf), cfg)
+
+
+def local_mapping_step(m: ms.MapState, new_kf: int, cfg: SystemConfig, n_neighbors: int,
+                       device=None) -> ms.MapState:
+    """One ``LocalMapping::Run`` iteration for the keyframe in slot ``new_kf``
+    (``LocalMapping.cc:51-130``): ``local_mapping_pre`` then ``local_mapping_ba``.
+    Runs on ``device`` (the current CUDA card by default)."""
+    dev = resolve_device(device)
+    m = local_mapping_pre(m, new_kf, cfg, n_neighbors, dev)
+    return local_mapping_ba(m, new_kf, cfg, dev)

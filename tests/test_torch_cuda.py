@@ -375,3 +375,129 @@ def test_fused_masked_match(dev, na, nb, radius, case):
         assert got[2][:2].tolist() == [300, 5] and got[1][:2].tolist() == [0.0, 0.0]
     if case == "no valid":
         assert (got[2] == -1).all() and (got[0] == 1e9).all()
+
+
+# ---------------------------------------------------------------------------
+# keyframes and local mapping (plain PyTorch, no kernel of their own): the
+# card runs them bit-identically from run to run and within the f32 spread
+# of the CPU route (tests/test_torch_mapping.py states the bounds)
+# ---------------------------------------------------------------------------
+
+
+def _maps_identical(a, b):
+    return [k for k, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+
+
+def _pose_err(a, b):
+    from fishbirdeyevisualslam_torch.geometry import se3
+    return se3.log(se3.compose(a.cpu(), se3.inverse(b.cpu()))).abs().max().item()
+
+
+def test_bundle_adjust_card(dev):
+    """Two card runs bit-identical; against the CPU: poses within 2e-4,
+    points within 5e-3 m, the classification equal."""
+    from fishbirdeyevisualslam_torch import convert
+    from fishbirdeyevisualslam_torch.solvers import ba
+    from torch_scenes import TCFG, ba_problem
+    p = ba_problem()
+    args = lambda d: (torch.from_numpy(p["poses0"]).to(d), torch.from_numpy(p["fixed"]).to(d),
+                      convert.from_numpy(ba.PointBlocks, p["front"], d),
+                      convert.from_numpy(ba.PointBlocks, p["bird"], d),
+                      convert.from_numpy(ba.OdomEdges, p["odom"], d))
+    r1, r2 = (ba.bundle_adjust(TCFG.camera, TCFG.ba, *args(dev)) for _ in range(2))
+    assert _maps_identical(r1, r2) == []
+    ref = ba.bundle_adjust(TCFG.camera, TCFG.ba, *args(torch.device("cpu")))
+    assert _pose_err(r1.poses, ref.poses) < 2e-4
+    torch.testing.assert_close(r1.front_Xw.cpu(), ref.front_Xw, rtol=0, atol=5e-3)
+    torch.testing.assert_close(r1.bird_Xw.cpu(), ref.bird_Xw, rtol=0, atol=5e-3)
+    assert torch.equal(r1.front_inlier.cpu(), ref.front_inlier)
+    assert torch.equal(r1.bird_inlier.cpu(), ref.bird_inlier)
+
+
+def test_reduced_solve_lu_branch_card(dev):
+    """An indefinite reduced system: the Cholesky fails on the card too, and
+    the LU solve of the same system is taken, with no host read."""
+    from fishbirdeyevisualslam_torch.solvers import ba
+    rng = np.random.RandomState(0)
+    H = rng.randn(3, 6, 3, 6).astype(np.float32)
+    Hcc = torch.from_numpy(H + H.transpose(2, 3, 0, 1)).to(dev)
+    bc = torch.from_numpy(rng.randn(3, 6).astype(np.float32)).to(dev)
+    fixed = torch.tensor([True, False, False], device=dev)
+    Hd, b = ba._reduced_system(Hcc, bc, fixed, 1e-4)
+    assert int(torch.linalg.cholesky_ex(Hd).info) > 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ba._solve_reduced(Hcc, bc, fixed, 1e-4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(got.reshape(-1), torch.linalg.solve(Hd, b), rtol=1e-4, atol=1e-5)
+    assert bool(torch.all(got[0] == 0))
+
+
+def _tmap(d, dev):
+    from fishbirdeyevisualslam_torch import convert
+    return convert.map_state_from_numpy(d, dev)
+
+
+def test_ties_card(dev):
+    """The window and neighbour picks with tied covisibility weights: the
+    same on the card as on the CPU, ties to the lower slot."""
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from torch_scenes import K, TCFG_TIES, ties_scene
+    scene = ties_scene()
+    for d in (dev, torch.device("cpu")):
+        m = _tmap(scene, d)
+        nb, ok = tr._top_covis_neighbors(m, 4, 3)
+        assert nb.tolist() == [K - 1, 0, 1] and ok.tolist() == [True] * 3
+        win = tr._local_window_masks(m, TCFG_TIES, 4)
+        assert torch.nonzero(win[0]).flatten().tolist() == [0, 1, 4, K - 1]
+        if d == dev:
+            card = [x.cpu() for x in win]
+    for x, y in zip(card, win):
+        assert torch.equal(x, y)
+
+
+def test_local_ba_ties_card(dev):
+    """local_ba with tied weights and a live local keyframe in slot K-1: two
+    card runs bit-identical, slot K-1 updated, the CPU within 2e-4."""
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from torch_scenes import K, TCFG_TIES, ties_scene
+    scene = ties_scene()
+    r1, r2 = (tr.local_ba(_tmap(scene, dev), TCFG_TIES, 4) for _ in range(2))
+    assert _maps_identical(r1, r2) == []
+    ref = tr.local_ba(_tmap(scene, "cpu"), TCFG_TIES, 4)
+    assert set(_maps_identical(type(ref)(*[x.cpu() for x in r1]), ref)) <= {
+        "kf_Tcw", "mp_pos", "bp_pos"}
+    assert _pose_err(r1.kf_Tcw, ref.kf_Tcw) < 2e-4
+    assert (r1.kf_Tcw[K - 1].cpu() != torch.from_numpy(scene["kf_Tcw"][K - 1])).any()
+
+
+def test_local_mapping_step_card(dev):
+    """insert_keyframe + local_mapping_step on the slice scene: two card runs
+    bit-identical; against the CPU every discrete field equal, poses within
+    2e-4, the points the new keyframe observes reprojected into it within
+    0.02 px."""
+    from fishbirdeyevisualslam_torch import convert
+    from fishbirdeyevisualslam_torch.geometry import camera, se3
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from torch_scenes import TCFG, slice_scene
+    s = slice_scene()
+
+    def run(d):
+        m = tr.insert_keyframe(_tmap(s["m"], d), convert.frame_from_numpy(s["frame"], d),
+                               tr.TrackObs(torch.from_numpy(s["assoc"]["mp_idx"]).to(d),
+                                           torch.from_numpy(s["assoc"]["bp_idx"]).to(d)),
+                               torch.from_numpy(s["Tcw"]).to(d), TCFG, 15, slot=3, device=d)
+        return tr.local_mapping_step(m, 3, TCFG, TCFG.tracking.mapping_neighbors, device=d)
+
+    r1, r2 = run(dev), run(dev)
+    assert _maps_identical(r1, r2) == []
+    ref = run(torch.device("cpu"))
+    got = type(ref)(*[x.cpu() for x in r1])
+    floats = {"kf_Tcw", "mp_pos", "bp_pos", "mp_min_dist", "mp_max_dist", "mp_normal"}
+    assert set(_maps_identical(got, ref)) <= floats
+    assert _pose_err(got.kf_Tcw, ref.kf_Tcw) < 2e-4
+    torch.testing.assert_close(got.bp_pos, ref.bp_pos, rtol=0, atol=5e-3)
+    v = ref.mp_valid & torch.any((ref.obs_kf == 3) & ref.obs_valid, dim=1)
+    uv = lambda m: camera.project_pinhole(TCFG.camera, se3.transform(ref.kf_Tcw[3], m.mp_pos[v]))
+    assert (uv(got) - uv(ref)).abs().max().item() < 0.02

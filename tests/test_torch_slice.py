@@ -41,6 +41,9 @@ P, PB, K, M = 1024, 512, 16, 4
 JCFG = JaxConfig().replace(capacity=JaxCap(max_keyframes=K, max_points=P, max_bird_points=PB,
                                            max_obs_per_point=M, max_front_kp=F, max_bird_kp=FB))
 TCFG = convert.config_from_dict(dataclasses.asdict(JCFG))
+# the references are compiled with XLA's backend at optimisation level 0: the
+# same programs, with about half the compile's CPU time
+XLA_OPTS = {"xla_backend_optimization_level": 0}
 
 
 def _image(shape, seed):
@@ -99,7 +102,7 @@ def _compile_jax_track():
     return jax.jit(j_tr.track_frame_core, static_argnums=(2,)).lower(
         jax.tree.map(sds, j_ms.empty_map(JCFG)), jf, JCFG, f32(7), i32(2 * F), i32(),
         jax.eval_shape(j_tr.bird_only_view, jf), i32(FB), f32(7),
-        jax.ShapeDtypeStruct((), jnp.bool_)).compile()
+        jax.ShapeDtypeStruct((), jnp.bool_)).compile(XLA_OPTS)
 
 
 def _jax_refs():
@@ -110,8 +113,9 @@ def _jax_refs():
         rng = np.random.RandomState(0)
         front, bird = _image((400, 950), 0), _image((384, 384), 1)
         mask = np.full((384, 384), 255, np.float32)
-        jf = j_build_frame(jnp.asarray(front), jnp.asarray(bird), jnp.asarray(mask),
-                           jnp.zeros(3), jnp.float32(0.0), JCFG, F, None, FB)
+        jf = jax.jit(lambda a, b, c, d, e: j_build_frame(a, b, c, d, e, JCFG, F, None, FB),
+                     compiler_options=XLA_OPTS)(jnp.asarray(front), jnp.asarray(bird),
+                                                jnp.asarray(mask), jnp.zeros(3), jnp.float32(0.0))
         fr = _np(jf)
         m, n = _build_map(fr, rng)
         cand = np.full(2 * F, -1, np.int32)
