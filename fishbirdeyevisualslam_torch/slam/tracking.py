@@ -639,8 +639,8 @@ def _epipolar_line_dist(cam, Tcw1, Tcw2, uv1, uv2):
     return num * num / torch.clamp(den2[:, None], min=1e-12)
 
 
-def triangulate_new_points(m: ms.MapState, new_kf: int, ref_kf: int, cfg: SystemConfig,
-                           enabled=True) -> ms.MapState:
+def triangulate_new_points(m: ms.MapState, new_kf: int, ref_kf: int,
+                           cfg: SystemConfig) -> ms.MapState:
     """``LocalMapping::CreateNewMapPoints`` (``LocalMapping.cc:231-476``)
     against one neighbour: match the new keyframe's unassociated features to
     the neighbour's (rotation-compensated 120 px window, epipolar gate, ratio
@@ -665,7 +665,7 @@ def triangulate_new_points(m: ms.MapState, new_kf: int, ref_kf: int, cfg: System
     lut = inv_level_sigma2_lut(cfg, uv1.device)
     sigma2_ref = 1.0 / lut[m.kf_octave[ref_kf].clamp(0, lut.shape[0] - 1).long()]
     ep2 = _epipolar_line_dist(cam, m.kf_Tcw[new_kf], m.kf_Tcw[ref_kf], uv1, m.kf_uv[ref_kf])
-    compat = compat & (ep2 < 3.84 * sigma2_ref[None, :]) & enabled
+    compat = compat & (ep2 < 3.84 * sigma2_ref[None, :])
     res = matcher.match(d1, d2, compat, max_dist=float(cfg.matcher.th_low), ratio=0.8)
     res = matcher.resolve_duplicates(res, F)
     f2 = res.idx.clamp(0, F - 1)
@@ -767,7 +767,9 @@ def local_ba(m: ms.MapState, cfg: SystemConfig, center_kf: int) -> ms.MapState:
     The problem is compacted first to ``max_local_kfs`` + ``max_local_observers``
     keyframes (+ a fixed dummy) and ``max_local_points`` /
     ``max_local_bird_points`` landmarks, the strongest first.  Results are
-    written back to the selected rows only."""
+    written back to the selected rows only: a padding row of the landmark
+    selection (a window under the cap) names a landmark outside the window,
+    whose observations keep their flags (ROADMAP, queue 3)."""
     cap = cfg.capacity
     K = m.K
     dev = m.kf_valid.device
@@ -812,15 +814,15 @@ def local_ba(m: ms.MapState, cfg: SystemConfig, center_kf: int) -> ms.MapState:
         kf_Tcw=ms.put_rows(m.kf_Tcw, sel, upd_kf, out.poses[:LC]),
         mp_pos=ms.put_rows(m.mp_pos, psel, pval, out.front_Xw),
         bp_pos=ms.put_rows(m.bp_pos, bsel, bval, out.bird_Xw),
-        obs_valid=m.obs_valid.index_copy(0, ps, torch.where(front.valid, out.front_inlier,
-                                                              m.obs_valid[ps])),
-        bobs_valid=m.bobs_valid.index_copy(0, bs, torch.where(bird.valid, out.bird_inlier,
-                                                                m.bobs_valid[bs])),
+        obs_valid=m.obs_valid.index_copy(
+            0, ps, torch.where(front.valid & pval[:, None], out.front_inlier, m.obs_valid[ps])),
+        bobs_valid=m.bobs_valid.index_copy(
+            0, bs, torch.where(bird.valid & bval[:, None], out.bird_inlier, m.bobs_valid[bs])),
     )
 
 
-def fuse_neighbors(m: ms.MapState, new_kf: int, neighbor_kf: int, cfg: SystemConfig,
-                   enabled=True) -> ms.MapState:
+def fuse_neighbors(m: ms.MapState, new_kf: int, neighbor_kf: int,
+                   cfg: SystemConfig) -> ms.MapState:
     """``LocalMapping::SearchInNeighbors`` (``LocalMapping.cc:478-558``) in one
     direction: project the new keyframe's points into the neighbour and match
     in a 4 px window.  A match on a free feature registers the observation; a
@@ -835,7 +837,7 @@ def fuse_neighbors(m: ms.MapState, new_kf: int, neighbor_kf: int, cfg: SystemCon
     row = m.kf_mp[new_kf]
     pid = row.clamp(0, P - 1)
     pl = pid.long()
-    has_pt = (row >= 0) & m.mp_valid[pl] & enabled
+    has_pt = (row >= 0) & m.mp_valid[pl]
     pc = se3.transform(m.kf_Tcw[neighbor_kf], m.mp_pos[pl])
     uv_proj = cam_ops.project_pinhole(cfg.camera, pc)
     vis = has_pt & (pc[:, 2] > 0.1)

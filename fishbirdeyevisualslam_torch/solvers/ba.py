@@ -21,7 +21,7 @@ slice.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -191,16 +191,13 @@ def _chi2_total(chi2_f, wf_act, chi2_b, wb_act, huber_delta, use_huber: bool):
 
 
 def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBlocks,
-                  bird: PointBlocks, odom: OdomEdges, n_iters_1: Optional[int] = None,
-                  n_iters_2: Optional[int] = None) -> BAResult:
+                  bird: PointBlocks, odom: OdomEdges) -> BAResult:
     """Two LM stages like the reference's local BA (``Optimizer.cc:2511-2572``):
     ``local_ba_iters_1`` robust iterations, the outlier re-gate (chi2 above
     5.991 or negative depth), ``local_ba_iters_2`` iterations without the
     robust kernel, then the final classification (``:2574-2610``).  A step is
     kept where the total chi2 drops; the damping halves on a kept step and
     quadruples otherwise.  Every decision is a device-side select."""
-    it1 = ba.local_ba_iters_1 if n_iters_1 is None else n_iters_1
-    it2 = ba.local_ba_iters_2 if n_iters_2 is None else n_iters_2
     K = poses0.shape[0]
     f_act0 = front.valid & front.point_valid[:, None]
     b_act0 = bird.valid & bird.point_valid[:, None]
@@ -250,8 +247,10 @@ def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBl
         return (f_act0 & (c2f <= ba.chi2_mono_ba * ba.w_front) & f_depth,
                 b_act0 & (c2b <= ba.chi2_bird * ba.w_bird))
 
-    poses, fXw, bXw = lm_stage(poses0, front.Xw, bird.Xw, f_act0, b_act0, it1, True)
+    poses, fXw, bXw = lm_stage(poses0, front.Xw, bird.Xw, f_act0, b_act0,
+                               ba.local_ba_iters_1, True)
     f_act1, b_act1 = classify(poses, fXw, bXw)
-    poses, fXw, bXw = lm_stage(poses, fXw, bXw, f_act1, b_act1, it2, False)
+    poses, fXw, bXw = lm_stage(poses, fXw, bXw, f_act1, b_act1,
+                               ba.local_ba_iters_2, False)
     f_in, b_in = classify(poses, fXw, bXw)
     return BAResult(poses, fXw, bXw, f_in, b_in)

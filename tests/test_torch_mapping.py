@@ -18,8 +18,10 @@ the weak direction (``tests/test_torch_ba.py``).
 Two writes of the JAX package are lost by design of its scatters: it sends
 the rows it does not write to feature F-1 or keyframe slot K-1 and restores
 the old value there, and when the real write also goes there the restore can
-win.  The port writes only the rows it means to.  The cases below build
-both collisions on purpose and hold the port to the write that was meant
+win.  A third write is one it should not make: its local BA clears the
+observation flags of landmarks outside the window that pad the landmark
+selection.  The port writes only the rows it means to.  The cases below
+build these on purpose and hold the port to the write that was meant
 (ROADMAP, queue 3)."""
 
 import dataclasses
@@ -109,7 +111,7 @@ def _inputs():
     ties = ties_scene()
     rng = np.random.RandomState(5)
     return dict(slice=sl, fault=fa, fault_insert=_mnp(_insert(fa)), ties=ties,
-                ties_swapped=_swap_slots(ties, K - 1, 7),
+                ties_swapped=_swap_slots(ties, K - 1, 7), ties_outside=ties_scene(outside=True),
                 recycled=_recycled(sl["m"]), want=rng.rand(F) < 0.2,
                 obs=obs_batch(6, 12), bobs=obs_batch(7, 12),
                 pressure=pressure_scene(sl["m"]), crowd=crowd_scene())
@@ -141,6 +143,7 @@ def _jax_refs():
     out["slice_step"] = j_tr.cull_keyframes(ba(out["slice_pre"], 3), JCFG_TIES)
     out["local_ba_ties"] = ba(J(inp["ties"]), 4)
     out["local_ba_swapped"] = ba(J(inp["ties_swapped"]), 4)
+    out["local_ba_outside"] = ba(J(inp["ties_outside"]), 4)
     return dict(inputs=raw, **jax.tree.map(np.asarray, out))
 
 
@@ -339,6 +342,39 @@ def test_local_ba_slot_k_minus_1(ref, ties_ba):
     d = t_se3.log(t_se3.compose(torch.from_numpy(ties_ba["kf_Tcw"][K - 1]),
                                 t_se3.inverse(torch.from_numpy(swapped))))
     assert d.abs().max() < POSE_TOL
+
+
+def test_local_ba_padding_rows(ref, ties_ba):
+    """Front landmark 72 and bird landmark 18 are live and seen only by the
+    observers 2 and 3, so they are outside the window and fill the first
+    padding rows of the landmark selections.  The JAX package writes the
+    padding rows back and clears their observations (the bundle adjustment
+    classifies an observation of a landmark it did not optimise as an
+    outlier); the port leaves them as they were.  Everything else is held
+    to JAX as on the ties scene, and to the port's run without the two."""
+    inp = ref["inputs"]["ties_outside"]
+    got = _mnp(t_tr.local_ba(_tm(inp), TCFG_TIES, 4))
+    want = _np(ref["local_ba_outside"])
+    assert inp["obs_valid"][72].sum() == 2 and inp["bobs_valid"][18].sum() == 2
+    assert not want["obs_valid"][72].any() and not want["bobs_valid"][18].any()
+    fixed = {k: v.copy() for k, v in want.items()}
+    fixed["obs_valid"][72] = inp["obs_valid"][72]
+    fixed["bobs_valid"][18] = inp["bobs_valid"][18]
+    _equal_maps(got, fixed, skip=("kf_Tcw", "mp_pos", "bp_pos"))
+    np.testing.assert_array_equal(got["mp_pos"][72], inp["mp_pos"][72])
+    np.testing.assert_array_equal(got["bp_pos"][18], inp["bp_pos"][18])
+    keep = np.arange(K) != K - 1
+    dT = t_se3.log(t_se3.compose(torch.from_numpy(got["kf_Tcw"][keep]),
+                                 t_se3.inverse(torch.from_numpy(want["kf_Tcw"][keep]))))
+    assert dT.abs().max() < POSE_TOL
+    np.testing.assert_allclose(got["bp_pos"], want["bp_pos"], atol=POINT_TOL)
+    _points_agree(got, fixed)
+    rows = {"mp_pos": 72, "obs_valid": 72, "bp_pos": 18, "bobs_valid": 18}
+    for k in ("kf_Tcw", *rows):
+        g = got[k].copy()
+        if k in rows:
+            g[rows[k]] = ties_ba[k][rows[k]]
+        np.testing.assert_array_equal(g, ties_ba[k], err_msg=k)
 
 
 def _consistent(m, slot):

@@ -272,13 +272,15 @@ def fault_scene():
     return dict(m=sc.finish(), frame=fr, assoc=assoc, Tcw=Tcw, pt_v=pv)
 
 
-def ties_scene():
+def ties_scene(outside=False):
     """Eight keyframes (steps 0-7; the one of step 7 in slot K-1) around the
     centre keyframe of step 4 (slot 4).  Each landmark is seen by the centre
     and two other keyframes, every other keyframe sharing 20 landmarks with
     the centre and slot K-1 22, so the covisibility weights tie but for slot
     K-1; with a window of 4 the window is the centre, K-1, 0 and 1 (ties to
-    the lower slot), and the observers 2 and 3."""
+    the lower slot), and the observers 2 and 3.  ``outside``: the same map
+    with one more front landmark (72) and bird landmark (18), each seen by the
+    observers 2 and 3 only, so outside the window."""
     sc = Scene(2)
     slots = [0, 1, 2, 3, 4, 5, 6, K - 1]
     vis = np.ones(len(sc.X), bool)
@@ -307,6 +309,13 @@ def ties_scene():
             sc.m["kf_bird_cam"][4, n_b] = _project(sc.m["kf_Tcw"][4], sc.Xg[n_b:n_b + 1])[1][0]
             sc.m["kf_bird_cam"][s, n_b] = _project(sc.m["kf_Tcw"][s], sc.Xg[n_b:n_b + 1])[1][0]
             n_b += 1
+    if outside:
+        w = min(w for (s, w) in sc.feat_of if s == 2 and (3, w) in sc.feat_of
+                and w not in common)
+        sc.register(pt, w, [2, 3])
+        sc.register_bird(n_b, bseen[n_b], [2, 3], [200, 200])
+        for s in (2, 3):
+            sc.m["kf_bird_cam"][s, 200] = _project(sc.m["kf_Tcw"][s], sc.Xg[n_b:n_b + 1])[1][0]
     return sc.finish()
 
 
