@@ -5,7 +5,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py                 # all phases (one card, nvcc)
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --profile       # all phases + the profiled frame's op table
-    python3 chip_smoke.py --mapping-only  # build + the mapping phase only
+    python3 chip_smoke.py --facade-only   # build + phase 5 (the facade drive) only
 
 Phases, each printing its lines:
   1. the card and the toolchain; the kernels built from
@@ -14,10 +14,11 @@ Phases, each printing its lines:
      path's shapes, with the device time of both (CUDA graph replays timed by
      CUDA events) and the kernel's own device time (the profiler's device
      activities of the port's own kernels over the same replays): FAST, the
-     patch gather and both projection matchers; the fused pose optimisation
-     on a stream frame's own inputs and on a synthetic problem, timed at
-     (rounds, iters) = (1, 0), (1, 10) and (4, 10); the packed Hamming matrix
-     and masked match at scripts/bench_matcher.py's shapes;
+     patch gather (also at the initialization budget, 4096 windows) and both
+     projection matchers; the fused pose optimisation on a stream frame's own
+     inputs and on a synthetic problem, timed at (rounds, iters) = (1, 0),
+     (1, 10) and (4, 10); the packed Hamming matrix and masked match at
+     scripts/bench_matcher.py's shapes;
   3. the per-frame slice (build_frame + track_frame_core) at full width
      with the default SystemConfig, a 32-frame stream (each frame under fresh
      sensor noise, the map and the last frame carried over), with each
@@ -25,15 +26,18 @@ Phases, each printing its lines:
      torch.profiler (device activities and busy share);
   4. the stream's next frame through the kernels' plain versions, and its
      tracking through the CPU's dense route, each compared with the kernels;
-  5. keyframes and local mapping at full width on a moving stream: a 30-frame
-     arc drive rendered by io/synthetic.py, bootstrapped with two keyframes at
-     their ground-truth poses, every later frame tracked with the odometry
-     prior, keyframes chosen by need_new_keyframe, inserted and mapped
-     (triangulation, fusion, culls, local BA); per keyframe the synchronised
-     times of both mapping stages, host syncs, window sizes and point counts;
-     the kernel launches over the stream; the ATE of the tracked poses; one
-     keyframe's mapping step held against the port's CPU run of it and run
-     twice on the card (bit-identical).
+  5. the entry point, SlamSystem(cfg, device=card).track, over a 30-frame arc
+     drive rendered by io/synthetic.py at full width: two-view initialization,
+     tracking, keyframes and the synchronous local mapping step; the
+     initialization's frame and route, each frame's state, per keyframe the
+     synchronised times of both mapping stages, host syncs, window sizes and
+     point counts, the tracer's spans, the host syncs of a tracked frame, the
+     kernel launches over the drive and the ATE (bound 0.15 m); the init pair
+     held against the port's CPU facade with the same draws; the last
+     keyframe's mapping step held against the CPU and run twice on the card
+     (bit-identical); then reset() with a re-initialization, and
+     localization mode, on a second facade over the same drive, as
+     tests/test_system_modes.py drives them.
 Then the kernel table as one JSON line, the card's name and power limit, and
 the device line.  Any failed check exits non-zero.  Needs no JAX.
 """
@@ -265,6 +269,23 @@ def phase_kernels(torch, cfg, dev):
     print(f"[kernel] patch gather: N={n} side={side}, exact, {rows['patch']['ms']:.4f} ms "
           f"(plain {rows['patch']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
           f"bytes {nbytes}: {read_px} distinct atlas px read of {atlas.numel()})", flush=True)
+
+    # the same gather at the initialization budget (n_features_init = 4096
+    # windows), which the facade's frames run until it initializes
+    budgets = image_ops.per_level_budget(orb.n_features_init, orb.n_levels, orb.scale_factor)
+    sels = [features._detect_level(s, r, orb, budgets[l]) for l, (s, r) in enumerate(maps)]
+    atlas4, yx4 = features.level_atlas(levels[: orb.n_levels], [s[0] for s in sels])
+    if not torch.equal(cuda_patch.extract_patches(atlas4, yx4, side),
+                       cuda_patch.extract_patches_plain(atlas4, yx4, side)):
+        fail("patch gather differs from its plain version at the init budget")
+    ms4 = time_ms(torch, lambda: cuda_patch.extract_patches(atlas4, yx4, side))
+    plain4 = time_ms(torch, lambda: cuda_patch.extract_patches_plain(atlas4, yx4, side))
+    read4 = window_pixels(torch, atlas4, yx4, side)
+    b4, b4_by = bound(read4 * 4 + yx4.numel() * 4 + yx4.shape[0] * side * side * 4, 0, PEAK_F32)
+    rows["patch"]["init_budget"] = dict(n=yx4.shape[0], ms=ms4, plain_ms=plain4, bound_ms=b4)
+    print(f"[kernel] patch gather at the init budget: N={yx4.shape[0]} side={side}, exact, "
+          f"{ms4:.4f} ms (plain {plain4:.4f} ms, bound {b4:.4f} ms by {b4_by}; {read4} distinct "
+          f"atlas px read)", flush=True)
 
     # projection matchers: a real frame's 2048 descriptors against 4096 targets,
     # half of them the frame's own descriptors with a few bits flipped
@@ -777,10 +798,18 @@ def phase_slice(torch, cfg, dev, st, profile: bool = False):
     return launches, N_STREAM / dt, activities
 
 
-N_MAP = 30          # frames of the mapping phase's synthetic drive
+N_MAP = 30          # frames of the facade drive (an arc, io/synthetic.py)
+N_BEFORE_RESET = 6  # the modes' drive (tests/test_system_modes.py): frames before reset(),
+N_RESET = 8         # frames after it (re-initialization, then tracking),
+N_LOCAL = 4         # frames in localization mode
 MAP_STEP = 0.5      # metres per frame
-MAP_KF1 = 3         # the bootstrap's second keyframe
-ATE_BOUND = 0.5     # m over the drive: a crash guard, not a check of the mapping's accuracy
+ATE_BOUND = 0.15    # m: the JAX package's e2e bound (tests/test_e2e.py)
+# px: the last keyframe's mapping step, card against CPU, p99 of the front
+# points' reprojection difference in the keyframes that observe them; twice
+# the largest reading of `chip_smoke.py --survey` over keyframes 4-28 of the
+# drive (0.2192 px card against CPU, 0.4950 px one CPU thread against eight;
+# PERF.md)
+PX99_BOUND = 1.0
 
 
 def _sync(torch, dev):
@@ -792,19 +821,21 @@ def _sync(torch, dev):
 def count_syncs(torch, dev, out: list):
     """Append to ``out`` the host syncs of the block that
     ``torch.cuda.set_sync_debug_mode`` warns of: a lower bound, since that
-    detector does not see every synchronising operation.  On the CPU, nothing
-    to count."""
+    detector does not see every synchronising operation.  A block nested in
+    another counts its own syncs, and the outer block does not see them.  On
+    the CPU, nothing to count."""
     if dev.type != "cuda":
         yield
         out.append(0)
         return
+    mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         try:
             yield
         finally:
-            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.set_sync_debug_mode(mode)
     out.append(sum("synchroniz" in str(x.message) for x in w))
 
 
@@ -860,9 +891,31 @@ def describe_diff(d: dict) -> str:
             f"likewise, their position difference p99 {d['b99']:.3g} m, max {d['bmax']:.3g} m")
 
 
-def profile_mapping(torch, run) -> None:
-    """One keyframe's mapping step under torch.profiler: wall, device busy
-    time and activities, and the ops that cost the device and the host most."""
+def mapping_step_diffs(torch, cfg, dev, m0, slot: int, n_nb: int):
+    """One mapping step on ``m0`` for the keyframe at ``slot``, on ``dev``
+    and on the CPU with all its threads and with one: (``map_diff`` of the
+    card against the CPU, ``map_diff`` of one CPU thread against many, the
+    CPU step's seconds)."""
+    from fishbirdeyevisualslam_torch.device import to_device
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    cpu = torch.device("cpu")
+    got = tr.local_mapping_step(to_device(m0, dev), slot, cfg, n_nb, device=dev)
+    t1 = time.perf_counter()
+    ref = tr.local_mapping_step(to_device(m0, cpu), slot, cfg, n_nb, device=cpu)
+    t_cpu = time.perf_counter() - t1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = tr.local_mapping_step(to_device(m0, cpu), slot, cfg, n_nb, device=cpu)
+    finally:
+        torch.set_num_threads(threads)
+    return map_diff(torch, cfg, got, ref, slot), map_diff(torch, cfg, one, ref, slot), t_cpu
+
+
+def profile_call(torch, label: str, run) -> None:
+    """One call of ``run`` (after a warm-up call) under torch.profiler: wall,
+    device busy time and activities, and the ops that cost the device and
+    the host most."""
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
@@ -873,213 +926,347 @@ def profile_mapping(torch, run) -> None:
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in kernels) / 1e3
-    print(f"[mapping profile] one local_mapping_step: {wall:.1f} ms wall (profiled), "
-          f"{len(kernels)} device activities, device busy {busy:.2f} ms "
-          f"({100 * busy / wall:.1f}% of the wall time)", flush=True)
+    print(f"[profile] one {label}: {wall:.1f} ms wall (profiled), {len(kernels)} device "
+          f"activities, device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of the wall time)",
+          flush=True)
     ka = prof.key_averages()
     print(ka.table(sort_by="cuda_time_total", row_limit=12))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
 
 
-def phase_mapping(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False):
-    """Keyframes and local mapping at full width on a moving stream: an arc
-    drive rendered by the port's copy of io/synthetic.py, bootstrapped with two
-    keyframes at their ground-truth poses (frame 0 written as the fixed
-    gauge, frame MAP_KF1 inserted, points triangulated between the two, one
-    local mapping step) in place of the two-view initializer, then every frame
-    tracked with the odometry motion prior; need_new_keyframe decides on the
-    counters SlamSystem._track_ok feeds it, and each keyframe is inserted and
-    mapped as its synchronous branch does.  The last keyframe's mapping step
-    (the most neighbours and the largest window) is held against the port's
-    CPU run of it and run twice on the card.
-    Returns (the kernel launches over the stream, the ATE, the per-keyframe
-    rows)."""
-    from fishbirdeyevisualslam_torch.device import to_device
-    from fishbirdeyevisualslam_torch.geometry import ipm, odometry, se3
-    from fishbirdeyevisualslam_torch.io import evaluate, synthetic
-    from fishbirdeyevisualslam_torch.ops import cuda_fast, cuda_matcher, cuda_patch
-    from fishbirdeyevisualslam_torch.slam import map_state as ms
+def profile_initialize(torch, cfg, dev, seq, ini: dict) -> None:
+    """The two-view initializer on the drive's init pair under the profiler:
+    ``initialize`` (both RANSACs, the decompositions, the census of 12
+    hypotheses) on the pair's init-budget frames and their match."""
+    from fishbirdeyevisualslam_torch.geometry import odometry, se3
     from fishbirdeyevisualslam_torch.slam import tracking as tr
     from fishbirdeyevisualslam_torch.slam.frame import build_frame
+    from fishbirdeyevisualslam_torch.solvers import initializer as init_mod
+    f1, f2 = (build_frame(seq.frames[i]["front"], seq.frames[i]["bird"], seq.frames[i]["mask"],
+                          seq.odom[i], seq.frames[i]["timestamp"], cfg, cfg.orb.n_features_init,
+                          None, cfg.capacity.max_bird_kp, device=dev)
+              for i in (ini["ref_frame"], ini["frame"]))
+    res = tr.match_for_init(f1, f2, cfg)
+    T21 = se3.inverse(odometry.preintegrate_cam(cfg.extrinsics, f1.odom, f2.odom))
+    uv2 = tr._matched_uv2(f1, f2, res)
+    draws = tuple(g.to(dev) for g in init_mod.GumbelDraws(7)(2, 200, res.ok.shape[0]))
+    profile_call(torch, f"initialize ({res.ok.shape[0]} features, {int(res.count)} matches)",
+                 lambda: init_mod.initialize(cfg.camera, f1.uv, uv2, res.ok, T21, draws))
+
+
+@contextlib.contextmanager
+def mapping_timers(torch, cfg, dev, rows: list, captured: dict, keep=()):
+    """Wrap ``local_mapping_pre`` and ``local_mapping_ba`` (which the facade's
+    ``local_mapping_step`` looks up at each call) with synchronised timers and
+    host-sync counts: one row per keyframe in ``rows``, with the window's
+    size and point counts; ``captured`` keeps the last keyframe's map before
+    its step and its slot, and under ``"kept"`` a host copy of the map and the
+    slot of each keyframe whose number (from 1) is in ``keep``."""
+    from fishbirdeyevisualslam_torch.device import to_device
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    pre0, ba0 = tr.local_mapping_pre, tr.local_mapping_ba
+
+    def pre(m, new_kf, cfg_, n_nb, device=None, counts=None):
+        captured.update(m=m, slot=new_kf)
+        if len(rows) + 1 in keep:
+            captured.setdefault("kept", []).append(
+                (len(rows) + 1, to_device(m, torch.device("cpu")), new_kf))
+        counts, syncs = {}, []
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        with count_syncs(torch, dev, syncs):
+            m = pre0(m, new_kf, cfg_, n_nb, device, counts=counts)
+        _sync(torch, dev)
+        rows.append(dict(slot=new_kf, pre_ms=(time.perf_counter() - t1) * 1e3,
+                         syncs_pre=syncs[0], **{k: int(v) for k, v in counts.items()}))
+        return m
+
+    def ba(m, new_kf, cfg_, device=None):
+        trunc = tr.local_ba_truncation(m, cfg_, new_kf).tolist()
+        n_local = int(tr._local_window_masks(m, cfg_, new_kf)[0].sum())
+        syncs = []
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        with count_syncs(torch, dev, syncs):
+            m = ba0(m, new_kf, cfg_, device)
+        _sync(torch, dev)
+        rows[-1].update(ba_ms=(time.perf_counter() - t1) * 1e3, syncs_ba=syncs[0],
+                        window_kfs=n_local, window_points=trunc[2], window_bird=trunc[3],
+                        dropped=trunc[0], dropped_bird=trunc[1], n_mp=int(m.n_mp),
+                        n_bp=int(m.n_bp), n_kf=int(m.kf_valid.sum()))
+        return m
+
+    tr.local_mapping_pre, tr.local_mapping_ba = pre, ba
+    try:
+        yield
+    finally:
+        tr.local_mapping_pre, tr.local_mapping_ba = pre0, ba0
+
+
+@contextlib.contextmanager
+def stage_timers(torch, dev, out: dict):
+    """Wrap the facade's ``build_frame`` and ``track_frame_core`` with
+    synchronised timers: ``out`` gets the ms of each (the last call)."""
+    from fishbirdeyevisualslam_torch.slam import system, tracking
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            r = fn(*args, **kwargs)
+            _sync(torch, dev)
+            out[name] = (time.perf_counter() - t1) * 1e3
+            return r
+        return run
+
+    build0, core0 = system.build_frame, tracking.track_frame_core
+    system.build_frame = timed("build_frame", build0)
+    tracking.track_frame_core = timed("track_frame_core", core0)
+    try:
+        yield
+    finally:
+        system.build_frame, tracking.track_frame_core = build0, core0
+
+
+def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
+                 survey: bool = False):
+    """The port's entry point, ``SlamSystem(cfg, device=dev).track``, over an
+    arc drive rendered by the port's copy of io/synthetic.py: two-view
+    initialization at the doubled front budget, tracking, keyframe insertion
+    and the synchronous local mapping step, at full width.  Prints the frame
+    and route of the initialization, each frame's state, the keyframes, each
+    keyframe's mapping times (synchronised timers around the two mapping
+    stages), host syncs, window and point counts, the tracer's spans, the
+    host syncs of a tracked frame through the facade and the ATE.  Then holds
+    the init pair against the port's CPU facade with the same draws, the last
+    keyframe's mapping step against the CPU and against itself on the card,
+    and drives reset() with a re-initialization and localization mode on a
+    second facade over the same drive.  Returns (the kernel launches over the drive, the ATE,
+    the per-keyframe rows, the launches of the patch gather at the init
+    budget).  With ``survey``, the mapping step of every fourth keyframe and
+    of the last is held against the CPU instead (the readings behind that
+    check's bound), and nothing after it runs."""
+    from fishbirdeyevisualslam_torch.geometry import se3
+    from fishbirdeyevisualslam_torch.io import evaluate, synthetic
+    from fishbirdeyevisualslam_torch.ops import cuda_fast, cuda_matcher, cuda_patch
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
     from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 
     cap = cfg.capacity
-    F, FB = cap.max_front_kp, cap.max_bird_kp
     n_nb = cfg.tracking.mapping_neighbors
     t0 = time.perf_counter()
     seq = synthetic.make_sequence(cfg, n_frames=n_frames, kind="arc", step=MAP_STEP, seed=0)
-    print(f"[mapping] rendered an arc drive of {n_frames} frames, {MAP_STEP} m per frame, in "
+    print(f"[facade] rendered an arc drive of {n_frames} frames, {MAP_STEP} m per frame, in "
           f"{time.perf_counter() - t0:.1f} s (front {cfg.camera.width}x{cfg.camera.height}, "
           f"bird {cfg.bird.cols}x{cfg.bird.rows}; K={cap.max_keyframes} P={cap.max_points} "
-          f"PB={cap.max_bird_points} M={cap.max_obs_per_point}, {F}+{FB} keypoints, "
+          f"PB={cap.max_bird_points} M={cap.max_obs_per_point}, {cap.max_front_kp}+"
+          f"{cap.max_bird_kp} keypoints, {cfg.orb.n_features_init} front until initialized, "
           f"mapping_neighbors {n_nb}, local BA {cap.max_local_kfs}+{cap.max_local_observers} "
           f"keyframes, {cap.max_local_points}+{cap.max_local_bird_points} points)", flush=True)
-    Tbc = ipm.extrinsics_Tbc(cfg.extrinsics, device=dev)
 
-    def gt_Tcw(i):
-        Twb = odometry.se2_to_se3(torch.as_tensor(seq.gt[i], device=dev))
-        return se3.inverse(se3.compose(Twb, Tbc))
-
-    def frame(i):
+    def track(sys_, i):
         fr = seq.frames[i]
-        return build_frame(fr["front"], fr["bird"], fr["mask"].astype(np.float32),
-                           seq.odom[i], fr["timestamp"], cfg, F, fr["contour"], FB, device=dev)
+        return sys_.track(fr["front"], fr["bird"], fr["mask"], seq.odom[i], fr["timestamp"])
 
     counters = (cuda_fast.fast_detect_levels, cuda_patch.extract_patches,
                 cuda_matcher.fused_projection_match_dual, cuda_matcher.fused_projection_match,
                 cuda_pose_opt.pose_optimization)
+    sys_ = SlamSystem(cfg, device=dev)
+    rows, captured, frame_syncs = [], {}, []
     for c in counters:
         c.launches = 0
-    none = lambda n: torch.full((n,), -1, dtype=torch.int32, device=dev)
-
-    # --- bootstrap: two keyframes at ground truth (stands in for the initializer)
-    f0, f1 = frame(0), frame(MAP_KF1)
-    m = tr._write_kf(ms.empty_map(cfg, device=dev), 0, f0, gt_Tcw(0), True, 0)
-    m = tr.insert_keyframe(m, f1, tr.TrackObs(none(F), none(FB)), gt_Tcw(MAP_KF1), cfg,
-                           MAP_KF1, slot=1, device=dev)
-    m = tr.triangulate_new_points(m, 1, 0, cfg)
-    n_boot = int(m.n_mp)
-    m = tr.local_mapping_step(m, 1, cfg, n_nb, device=dev)
-    print(f"[mapping] bootstrap (in place of the two-view initializer): keyframes at frames 0 "
-          f"and {MAP_KF1} at their ground-truth poses, {n_boot} points triangulated between "
-          f"them, {int(m.n_mp)} after the first local mapping step", flush=True)
-
-    est = {0: gt_Tcw(0).cpu(), MAP_KF1: m.kf_Tcw[1].cpu()}
-    last_f, last_Tcw = f1, m.kf_Tcw[1]
-    assoc = tr.TrackObs(m.kf_mp[1], m.kf_bird_mp[1])
-    last_kf_slot, last_kf_frame = 1, MAP_KF1
-    kf_rows, captured, n_lost, scalars = [], None, 0, []
-    t_stream = time.perf_counter()
-    for i in range(MAP_KF1 + 1, n_frames):
-        f = frame(i)
-        T_pred = odometry.motion_prior_Tcw(cfg.extrinsics, last_Tcw, last_f.odom, f.odom)
-        cand = torch.cat([assoc.mp_idx, m.kf_mp[last_kf_slot]])
-        core = tr.track_frame_core(m, f, cfg, T_pred, cand, last_kf_slot,
-                                   tr.bird_only_view(last_f), assoc.bp_idx, last_Tcw, True,
-                                   device=dev)
-        n_mm, n_in, nref3, nref2, n_bird, n_ref_bird, n_kfs = core.scalars.tolist()
-        m, Tcw = core.map, core.Tcw
-        assoc = tr.TrackObs(core.mp_idx, core.bp_idx)
-        if n_in < 10:   # the facade's loss gate within 2 fps of an initialisation
-            n_lost += 1
-        scalars.append((n_mm, n_in, n_bird))
-        need, _ = tr.need_new_keyframe(
-            cfg, localization_only=False, n_kfs=n_kfs, frame_id=i, last_kf_frame_id=last_kf_frame,
-            last_reloc_frame_id=MAP_KF1, n_inliers=n_in,
-            n_ref_matches=nref3 if n_kfs > 2 else nref2, mapping_idle=True,
-            n_bird_matched=n_bird, n_ref_bird=n_ref_bird)
-        if need:
-            slot, ok, _ = tr.free_kf_slot(m)
-            if not bool(ok):
-                m = tr.force_evict_keyframe(m, cfg)
-                slot = tr.free_kf_slot(m)[0]
-            slot = int(slot)
-            m = tr.insert_keyframe(m, f, assoc, Tcw, cfg, i, slot=slot, device=dev)
-            captured = (m, slot, len(kf_rows) + 1)
-            row = dict(frame=i, slot=slot, n_inliers=n_in, n_motion=n_mm)
-            counts, syncs = {}, []
-            _sync(torch, dev)
-            t1 = time.perf_counter()
-            with count_syncs(torch, dev, syncs):
-                m = tr.local_mapping_pre(m, slot, cfg, n_nb, device=dev, counts=counts)
-            _sync(torch, dev)
-            t2 = time.perf_counter()
-            trunc = tr.local_ba_truncation(m, cfg, slot).tolist()
-            n_local = int(tr._local_window_masks(m, cfg, slot)[0].sum())
-            _sync(torch, dev)
-            t3 = time.perf_counter()
-            with count_syncs(torch, dev, syncs):
-                m = tr.local_mapping_ba(m, slot, cfg, device=dev)
-            _sync(torch, dev)
-            t4 = time.perf_counter()
-            row.update(pre_ms=(t2 - t1) * 1e3, ba_ms=(t4 - t3) * 1e3, syncs_pre=syncs[0],
-                       syncs_ba=syncs[1], window_kfs=n_local, window_points=trunc[2],
-                       window_bird=trunc[3], dropped=trunc[0], dropped_bird=trunc[1],
-                       **{k: int(v) for k, v in counts.items()}, n_mp=int(m.n_mp),
-                       n_bp=int(m.n_bp), n_kf=int(m.kf_valid.sum()))
-            kf_rows.append(row)
-            print(f"[mapping] keyframe {len(kf_rows)} at frame {i} (slot {slot}, {n_in} inliers): "
-                  f"local_mapping_pre {row['pre_ms']:.1f} ms, local_mapping_ba "
-                  f"{row['ba_ms']:.1f} ms (synchronised); host syncs {row['syncs_pre']} + "
-                  f"{row['syncs_ba']}; window {n_local} keyframes, {trunc[2]} + {trunc[3]} points "
-                  f"(dropped by the caps {trunc[0]} + {trunc[1]}); points created "
-                  f"{row['created']}, merged {row['merged']}, culled {row['culled']} (bird "
-                  f"{row['bird_culled']}), evicted {row['evicted']}; map {row['n_kf']} keyframes, "
-                  f"{row['n_mp']} points, {row['n_bp']} bird points", flush=True)
-            Tcw = m.kf_Tcw[slot]
-            last_kf_slot, last_kf_frame = slot, i
-            assoc = tr.TrackObs(m.kf_mp[slot], m.kf_bird_mp[slot])
-        est[i] = Tcw.cpu()
-        last_f, last_Tcw = f, Tcw
+    t_drive = time.perf_counter()
+    scalars = []   # per tracked frame: motion-model matches, inliers, bird inliers
+    keep = set(range(4, n_frames, 4)) if survey else ()
+    with mapping_timers(torch, cfg, dev, rows, captured, keep):
+        for i in range(n_frames):
+            syncs, sc0 = [], sys_.last_scalars
+            try:
+                with count_syncs(torch, dev, syncs):
+                    track(sys_, i)
+            except NotImplementedError as e:
+                fail(f"frame {i}: {e}; states so far {[x.state for x in sys_.trajectory]}, "
+                     f"(frame, motion-model matches, inliers, bird inliers) {scalars}")
+            if sys_.last_scalars is not sc0:
+                sc = sys_.last_scalars
+                scalars.append((i, sc[0], sc[1], sc[4]))
+            if sys_.trajectory[-1].state == tr.OK:
+                frame_syncs.append((i, sys_.trajectory[-1].is_keyframe, syncs[0]))
     _sync(torch, dev)
-    dt = time.perf_counter() - t_stream
+    dt = time.perf_counter() - t_drive
     launches = {c.__name__: c.launches for c in counters}
-    n_tracked = n_frames - MAP_KF1 - 1
-    print(f"[mapping] {n_tracked} frames tracked in {dt:.1f} s ({n_tracked / dt:.2f} frames/s "
-          f"with mapping), {len(kf_rows)} keyframes inserted by need_new_keyframe, "
-          f"{n_lost} frames under the loss gate", flush=True)
-    print(f"[mapping] per frame (motion-model matches, inliers, bird inliers): {scalars}",
-          flush=True)
-    print(f"[mapping] kernel launches over the stream: {json.dumps(launches)}", flush=True)
-    frames = sorted(est)
-    Twb = ipm.Twb_from_Twc(cfg.extrinsics, se3.inverse(torch.stack([est[i] for i in frames])))
-    ate = evaluate.ate_rmse_vs_gt(Twb.numpy(), seq.gt[frames])
-    print(f"[mapping] ATE {ate:.4f} m (RMSE over {len(frames)} frames' tracked poses, SE2-aligned, "
-          f"io/evaluate.py) over a {MAP_STEP * (n_frames - 1):.1f} m drive", flush=True)
-    if kf_rows:
-        med = lambda k: statistics.median(r[k] for r in kf_rows)
-        print(f"[mapping] per keyframe, median: local_mapping_pre {med('pre_ms'):.1f} ms, "
+    states = [e.state for e in sys_.trajectory]
+    stages = sys_.tracer.report()
+    n_init_frames = stages.get("initialize", {}).get("count", 0)
+    ini = sys_.inits[0] if sys_.inits else None
+    if ini is None:
+        fail("the facade never initialized")
+    print(f"[facade] initialized on frame {ini['frame']} (reference frame {ini['ref_frame']}) by "
+          f"the {ini['route']} route: {ini['matches']} init matches, {ini['triangulated']} points "
+          f"triangulated, map {ini['n_mp']} points and {ini['n_bp']} bird points after the "
+          f"initial BA; T21 = {np.round(ini['T21'], 5).tolist()}", flush=True)
+    print(f"[facade] {n_frames} frames in {dt:.1f} s ({n_frames / dt:.2f} frames/s with mapping); "
+          f"states per frame {states}; keyframes at frames "
+          f"{sys_.keyframe_indices().tolist()}", flush=True)
+    print(f"[facade] per tracked frame (frame, motion-model matches, inliers, bird inliers): "
+          f"{scalars}", flush=True)
+    for k, r in enumerate(rows, 1):
+        print(f"[facade] keyframe {k} (slot {r['slot']}): local_mapping_pre {r['pre_ms']:.1f} ms, "
+              f"local_mapping_ba {r['ba_ms']:.1f} ms (synchronised); host syncs "
+              f"{r['syncs_pre']} + {r['syncs_ba']}; window {r['window_kfs']} keyframes, "
+              f"{r['window_points']} + {r['window_bird']} points (dropped by the caps "
+              f"{r['dropped']} + {r['dropped_bird']}); points created {r['created']}, merged "
+              f"{r['merged']}, culled {r['culled']} (bird {r['bird_culled']}), evicted "
+              f"{r['evicted']}; map {r['n_kf']} keyframes, {r['n_mp']} points, {r['n_bp']} bird "
+              "points", flush=True)
+    if rows:
+        med = lambda k: statistics.median(r[k] for r in rows)
+        print(f"[facade] per keyframe, median: local_mapping_pre {med('pre_ms'):.1f} ms, "
               f"local_mapping_ba {med('ba_ms'):.1f} ms, host syncs {med('syncs_pre')} + "
-              f"{med('syncs_ba')}; rows {json.dumps(kf_rows)}", flush=True)
+              f"{med('syncs_ba')}", flush=True)
+    print("[facade] tracer spans (host, s): " + "; ".join(
+        f"{k} count {v['count']} mean {v['mean_s'] * 1e3:.1f} ms max {v['max_s'] * 1e3:.1f} ms"
+        for k, v in stages.items()), flush=True)
+    print(f"[facade] host syncs per tracked frame outside its mapping step (frame, keyframe, "
+          f"syncs): {frame_syncs}", flush=True)
+    print(f"[facade] kernel launches over the drive: {json.dumps(launches)}; the patch gather "
+          f"at the init budget ({cfg.orb.n_features_init} windows): {n_init_frames} of them",
+          flush=True)
+    Twb = sys_.frame_trajectory_Twb()
+    ate = evaluate.ate_rmse_vs_gt(Twb, seq.gt[:n_frames])
+    print(f"[facade] ATE {ate:.4f} m (RMSE over {len(Twb)} frames, SE2-aligned, io/evaluate.py) "
+          f"over a {MAP_STEP * (n_frames - 1):.1f} m drive (bound {ATE_BOUND} m)", flush=True)
 
-    if not kf_rows:
-        fail("need_new_keyframe inserted no keyframe over the mapping stream")
-    if n_boot < 100 or sum(r["created"] for r in kf_rows) < 100:
-        fail("triangulation created too few points")
-    if n_lost:
-        fail(f"{n_lost} frames fell under the loss gate")
+    n_ok = sum(s == tr.OK for s in states)
+    if any(s == tr.LOST for s in states) or states[-1] != tr.OK \
+            or n_ok != n_frames - ini["frame"]:
+        fail(f"not every frame after the initialization was tracked: states {states}")
+    if not rows or sum(r["created"] for r in rows) < 100:
+        fail("too few keyframes or points were created over the drive")
     if not (math.isfinite(ate) and ate < ATE_BOUND):
         fail(f"ATE {ate} m is not below {ATE_BOUND} m")
-    if any(launches[c.__name__] == 0 for c in counters):
-        fail(f"a kernel of the tracking path was never launched: {launches}")
+    if dev.type == "cuda" and any(launches[c.__name__] == 0 for c in counters):
+        fail(f"a kernel of the path was never launched: {launches}")
 
-    # --- one keyframe's mapping step: twice on the card, once on the CPU
-    m0, slot, n_kf = captured
+    # --- the init pair on the port's CPU facade, with the same draws
+    cpu = SlamSystem(cfg, device="cpu")
+    t1 = time.perf_counter()
+    for i in range(ini["frame"] + 1):
+        track(cpu, i)
+    c_ini = cpu.inits[0] if cpu.inits else None
+    if c_ini is None:
+        fail("the CPU facade did not initialize on the same frames")
+    dT = se3.log(se3.compose(torch.from_numpy(ini["T21"]),
+                             se3.inverse(torch.from_numpy(c_ini["T21"])))).abs().max().item()
+    near = lambda x, y: abs(x - y) <= max(5, 0.01 * y)
+    print(f"[facade] the init pair on the CPU ({time.perf_counter() - t1:.1f} s): frame "
+          f"{c_ini['frame']} by the {c_ini['route']} route, {c_ini['matches']} matches, "
+          f"{c_ini['triangulated']} points, map {c_ini['n_mp']} + {c_ini['n_bp']}; T21 diff "
+          f"{dT:.3g} (bounds: same frame and route, T21 <= 1e-3, counts within max(5, 1%))",
+          flush=True)
+    if not (c_ini["frame"] == ini["frame"] and c_ini["route"] == ini["route"] and dT <= 1e-3
+            and all(near(ini[k], c_ini[k]) for k in ("triangulated", "n_mp", "n_bp"))):
+        fail("the init pair on the card and on the CPU disagree")
+
+    if survey:
+        worst, kept = {}, captured.get("kept", [])
+        if not kept or kept[-1][0] != len(rows):
+            kept.append((len(rows), captured["m"], captured["slot"]))
+        for k, m, slot in kept:
+            d, spread, t_cpu = mapping_step_diffs(torch, cfg, dev, m, slot, n_nb)
+            for name, x in (("card vs CPU", d), ("one CPU thread vs many", spread)):
+                print(f"[survey] keyframe {k} (slot {slot}), {name}: {describe_diff(x)}",
+                      flush=True)
+                for q in ("px99", "b99", "dT"):
+                    worst[name, q] = max(worst.get((name, q), 0.0), x[q])
+        print("[survey] largest over the keyframes: " + "; ".join(
+            f"{name} {q} {v:.4g}" for (name, q), v in worst.items()), flush=True)
+        return launches, ate, rows, n_init_frames
+
+    # --- the last keyframe's mapping step: twice on the card, once on the CPU
+    m0, slot = captured["m"], captured["slot"]
     if profile and dev.type == "cuda":
-        profile_mapping(torch, lambda: tr.local_mapping_step(m0, slot, cfg, n_nb, device=dev))
+        profile_call(torch, "local_mapping_step",
+                     lambda: tr.local_mapping_step(m0, slot, cfg, n_nb, device=dev))
+        profile_initialize(torch, cfg, dev, seq, ini)
     if dev.type == "cuda":
         runs = [tr.local_mapping_step(m0, slot, cfg, n_nb, device=dev) for _ in range(2)]
         diff = [k for k, x, y in zip(m0._fields, *runs) if not torch.equal(x, y)]
         if diff:
             fail(f"two card runs of local_mapping_step differ in {diff}")
-        print(f"[mapping] local_mapping_step on keyframe {n_kf} (slot {slot}), run twice on "
+        print(f"[facade] local_mapping_step on keyframe {len(rows)} (slot {slot}), run twice on "
               "the card: bit-identical in every field", flush=True)
-    got = tr.local_mapping_step(m0, slot, cfg, n_nb, device=dev)
-    t5 = time.perf_counter()
-    ref = tr.local_mapping_step(to_device(m0, torch.device("cpu")), slot, cfg, n_nb, device="cpu")
-    t_cpu = time.perf_counter() - t5
-    d = map_diff(torch, cfg, got, ref, slot)
-    print(f"[mapping] keyframe {n_kf}'s step on the CPU ({t_cpu:.1f} s), card vs CPU: "
+    d, spread, t_cpu = mapping_step_diffs(torch, cfg, dev, m0, slot, n_nb)
+    print(f"[facade] keyframe {len(rows)}'s step on the CPU ({t_cpu:.1f} s), card vs CPU: "
           f"{describe_diff(d)} (bounds: keyframes equal, pose diff <= 1e-3, counts within "
-          "max(5, 1%), >= 0.98 of the points and of the bird points at the same slot, p99 <= "
-          "0.1 px in the observing keyframes and <= 5e-3 m)", flush=True)
-    # the spread of f32 on this step: the CPU route against itself on one thread
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        one = tr.local_mapping_step(to_device(m0, torch.device("cpu")), slot, cfg, n_nb,
-                                    device="cpu")
-    finally:
-        torch.set_num_threads(threads)
-    print(f"[mapping] the same step on the CPU with one thread against {threads} threads "
-          f"(reported only): {describe_diff(map_diff(torch, cfg, one, ref, slot))}", flush=True)
-    near = lambda x, y: abs(x - y) <= max(5, 0.01 * y)
+          f"max(5, 1%), >= 0.98 of the points and of the bird points at the same slot, p99 <= "
+          f"{PX99_BOUND} px in the observing keyframes and <= 5e-3 m)", flush=True)
+    print(f"[facade] the same step on the CPU with one thread against {torch.get_num_threads()} "
+          f"threads (the f32 spread, not bounded): {describe_diff(spread)}", flush=True)
     c = d["counts"]
     if not (d["kf_same"] and d["dT"] <= 1e-3 and near(c[0], c[1]) and near(c[2], c[3])
-            and near(c[4], c[5]) and d["share"] >= 0.98 and d["px99"] <= 0.1
+            and near(c[4], c[5]) and d["share"] >= 0.98 and d["px99"] <= PX99_BOUND
             and d["bshare"] >= 0.98 and d["b99"] <= 5e-3):
         fail("local_mapping_step on the card and on the CPU disagree")
-    return launches, ate, kf_rows
+
+    # --- the modes, as tests/test_system_modes.py drives them, on a second
+    # facade over the same drive: reset() and re-initialization, then
+    # localization mode
+    modes = SlamSystem(cfg, device=dev)
+    for i in range(N_BEFORE_RESET):
+        track(modes, i)
+    modes.reset()
+    if modes.map is not None or any(e.ref_kf != -2 for e in modes.trajectory):
+        fail("reset() left a map or an unfrozen trajectory entry")
+    n_reset = N_BEFORE_RESET + N_RESET
+    for i in range(N_BEFORE_RESET, n_reset):
+        track(modes, i)
+    Twb = modes.frame_trajectory_Twb()
+    ate_r = evaluate.ate_rmse_vs_gt(Twb, seq.gt[:n_reset])
+    re = modes.inits[-1] if len(modes.inits) > 1 else None
+    states = [e.state for e in modes.trajectory[N_BEFORE_RESET:]]
+    print(f"[facade] modes: {N_BEFORE_RESET} frames, reset, {N_RESET} frames: re-initialized on "
+          f"frame {None if re is None else re['frame']} ({None if re is None else re['route']} "
+          f"route), states after the reset {states}, {len(Twb)} poses, all finite "
+          f"{bool(np.isfinite(Twb).all())}, ATE over all {len(Twb)} frames {ate_r:.4f} m (one "
+          "world frame: the new map is chained onto the dead-reckoned pose before the reset)",
+          flush=True)
+    if re is None or len(Twb) != n_reset or not np.isfinite(Twb).all() \
+            or states[-1] != tr.OK or not ate_r < ATE_BOUND:
+        fail("reset() and re-initialization misbehaved")
+    n_kf, n_mp = int(modes.map.n_kf), int(modes.map.mp_valid.sum())
+    modes.activate_localization_mode()
+    # frames without a keyframe: host syncs on the first half, and on the
+    # second the synchronised time of the whole call against that of its
+    # build_frame and track_frame_core
+    loc_syncs, loc_ms = [], []
+    for k, i in enumerate(range(n_reset, n_reset + N_LOCAL)):
+        if k < N_LOCAL // 2:
+            with count_syncs(torch, dev, loc_syncs):
+                track(modes, i)
+            continue
+        stage = {}
+        with stage_timers(torch, dev, stage):
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            track(modes, i)
+            _sync(torch, dev)
+        total = (time.perf_counter() - t1) * 1e3
+        loc_ms.append((total, stage["build_frame"], stage["track_frame_core"]))
+    print(f"[facade] modes: tracked frames without a keyframe: host syncs {loc_syncs} "
+          "(track_frame_core alone makes 2); synchronised ms (whole call, build_frame, "
+          f"track_frame_core, the facade's own) {[(round(t, 2), round(b, 2), round(c, 2), round(t - b - c, 2)) for t, b, c in loc_ms]}",
+          flush=True)
+    states = [e.state for e in modes.trajectory[n_reset:]]
+    n_kf2, n_mp2 = int(modes.map.n_kf), int(modes.map.mp_valid.sum())
+    modes.deactivate_localization_mode()
+    print(f"[facade] modes: localization mode, {N_LOCAL} frames: states {states}, keyframes "
+          f"{n_kf} -> {n_kf2}, points {n_mp} -> {n_mp2}", flush=True)
+    if n_kf2 != n_kf or n_mp2 != n_mp or any(s != tr.OK for s in states) \
+            or modes.localization_only:
+        fail("localization mode changed the map or lost tracking")
+    return launches, ate, rows, n_init_frames
 
 
 def main() -> int:
@@ -1088,8 +1275,12 @@ def main() -> int:
                     help="build the kernels and hold them against their plain versions only")
     ap.add_argument("--profile", action="store_true",
                     help="also print the profiled frame's op table")
-    ap.add_argument("--mapping-only", action="store_true",
-                    help="build the kernels and run the mapping phase only (no result lines)")
+    ap.add_argument("--facade-only", action="store_true",
+                    help="build the kernels and run phase 5, the facade drive, only (no result "
+                         "lines)")
+    ap.add_argument("--survey", action="store_true",
+                    help="build the kernels, drive phase 5 and hold the mapping step of every "
+                         "fourth keyframe against the CPU, only (no result lines)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1113,18 +1304,20 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
 
     cfg = SystemConfig()
-    if args.mapping_only:
-        phase_mapping(torch, cfg, dev, profile=args.profile)
+    if args.facade_only or args.survey:
+        phase_facade(torch, cfg, dev, profile=args.profile, survey=args.survey)
         return 0
     rows = phase_kernels(torch, cfg, dev)
     st = Stream(torch, cfg, dev, N_STREAM + N_PHASE + 2)
     rows.update(phase_pose_and_hamming(torch, cfg, dev, st))
     launches = {}
     if not args.kernels_only:
-        launches, fps, activities = phase_slice(torch, cfg, dev, st, args.profile)
+        slice_launches, fps, activities = phase_slice(torch, cfg, dev, st, args.profile)
         print(f"[slice] per frame: {fps:.2f} frames/s, {activities} device activities, "
-              f"{launches['pose_optimization'] / N_STREAM:g} pose kernel launches", flush=True)
-        phase_mapping(torch, cfg, dev, profile=args.profile)
+              f"{slice_launches['pose_optimization'] / N_STREAM:g} pose kernel launches",
+              flush=True)
+        # the table's launches are those of the entry point's drive (phase 5)
+        launches = phase_facade(torch, cfg, dev, profile=args.profile)[0]
     by_name = {"fast": "fast_detect_levels", "patch": "extract_patches",
                "match_dual": "fused_projection_match_dual", "match": "fused_projection_match",
                "pose_opt": "pose_optimization", "hamming": "hamming_matrix_packed",

@@ -8,7 +8,9 @@ C++ kernel under ``csrc/``, built with ``nvcc`` at first use and bound with
 ``ctypes`` (``_cuda.py``); each kernel's wrapper runs the kernel's plain
 PyTorch version when it is handed CPU tensors.
 
-Entry points (``slam.frame.build_frame``, ``slam.tracking.track_frame_core``,
+The entry point is ``slam.system.SlamSystem``: ``track`` once per frame
+initializes from two views, tracks, inserts keyframes and maps.  It and the
+lower entry points (``slam.frame.build_frame``, ``slam.tracking.track_frame_core``,
 ``slam.map_state.empty_map``, ``convert``) run on the first CUDA card unless the
 caller passes ``device="cpu"``; with no card and no device named they raise.
 """

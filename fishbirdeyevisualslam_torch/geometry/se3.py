@@ -60,6 +60,25 @@ def quat_to_matrix(q):
     return r.reshape(r.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(R):
+    """Rotation matrix -> quaternion (wxyz), branch-free: the candidate of the
+    dominant diagonal term (Shepperd), sign fixed to w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11], dim=-1)
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)
+    q = torch.take_along_dim(cands, idx[..., None, None].expand(idx.shape + (1, 4)),
+                             dim=-2)[..., 0, :]
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    return quat_normalize(q)
+
+
 def skew(v):
     zero = torch.zeros_like(v[..., 0])
     return torch.stack(

@@ -284,11 +284,11 @@ def render_front(world: World, cfg: SystemConfig, pose_se2) -> np.ndarray:
         lu = (p - bb.origin) @ bb.u_dir
         lv = (p - bb.origin) @ bb.v_dir
         hit = (tb > 0.1) & (tb < best_t) & (lu >= 0) & (lu <= bb.width) & (lv >= 0) & (lv <= bb.height)
+        idx = np.nonzero(hit)[0]   # a board covers a few pixels: sample its texture there only
         th, tw = bb.tex.shape
-        val = _bilinear(bb.tex, np.clip(lv / bb.height, 0, 1) * (th - 2),
-                        np.clip(lu / bb.width, 0, 1) * (tw - 2))
-        best_t = np.where(hit, tb, best_t)
-        color = np.where(hit, val, color)
+        color[idx] = _bilinear(bb.tex, np.clip(lv[idx] / bb.height, 0, 1) * (th - 2),
+                               np.clip(lu[idx] / bb.width, 0, 1) * (tw - 2))
+        best_t[idx] = tb[idx]
 
     return color.reshape(cam.height, cam.width)
 

@@ -1,11 +1,13 @@
 """Batched descriptor matching — the port of
 ``fishbirdeyevisualslam_tpu/ops/matcher.py`` (the reference's ORBmatcher,
 ``src/ORBmatcher.cc``) as dense masked problems: all-pairs Hamming distances
-from one +/-1 contraction, a compatibility mask, best and second-best per row.
+from one +/-1 contraction, a compatibility mask, best and second-best per row,
+and the rotation-consistency histogram (``ComputeThreeMaxima``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -35,6 +37,12 @@ def window_mask(xy_a, xy_b, radius):
     return (d[..., 0] <= r) & (d[..., 1] <= r)
 
 
+def level_mask(level_a, level_b, low: int = 0, high: int = 0):
+    """(N1, N2) bool: b's octave within [a.octave + low, a.octave + high]."""
+    d = level_b[None, :] - level_a[:, None]
+    return (d >= low) & (d <= high)
+
+
 def match(pm1_a, pm1_b, compat, max_dist: float,
           ratio: Optional[float] = None) -> MatchResult:
     """Best match of each A row in B under a compatibility mask.
@@ -53,6 +61,29 @@ def match(pm1_a, pm1_b, compat, max_dist: float,
     if ratio is not None:
         ok = ok & (best < ratio * second)
     return MatchResult(torch.where(ok, bidx, -1), torch.where(ok, best, BIG), ok)
+
+
+def rotation_consistency(angle_a, angle_b, res: MatchResult, histo_length: int = 30,
+                         keep_bins: int = 3, min_frac: float = 0.1) -> MatchResult:
+    """Keep the matches whose keypoint-angle difference falls in one of the
+    ``keep_bins`` fullest of ``histo_length`` bins; bins after the first only
+    when they hold more than ``min_frac`` of the first's count.  Equal counts
+    go to the lower bin, as ``lax.top_k`` orders them."""
+    two_pi = 2.0 * math.pi
+    n_b = angle_b.shape[0]
+    rot = angle_a - torch.where(res.ok, angle_b[res.idx.clamp(0, n_b - 1).long()], 0.0)
+    rot = torch.remainder(rot, two_pi)
+    bins = torch.round(rot * (histo_length / two_pi)).to(torch.int32) % histo_length
+    counts = torch.zeros(histo_length, dtype=torch.int32, device=rot.device).index_add(
+        0, bins.long(), res.ok.to(torch.int32))
+    top = torch.sort(counts, descending=True, stable=True)
+    top_c, top_i = top.values[:keep_bins], top.indices[:keep_bins]
+    keep = top_c > min_frac * top_c[0]
+    keep[0] = True
+    bin_ok = torch.zeros(histo_length, dtype=torch.bool, device=rot.device)
+    bin_ok[top_i] = keep
+    ok = res.ok & bin_ok[bins.long()]
+    return MatchResult(torch.where(ok, res.idx, -1), torch.where(ok, res.dist, BIG), ok)
 
 
 def resolve_duplicates(res: MatchResult, n_b: int) -> MatchResult:

@@ -1,9 +1,11 @@
 """Tracking and local mapping — the port of
-``fishbirdeyevisualslam_tpu/slam/tracking.py`` but its initialization and
-relocalization: ``track_frame_core`` and its callees (``TrackWithMotionModel``,
-``TrackLocalMap`` and the bird matching of ``src/Tracking.cc``), and the
-keyframe policy, insertion and ``local_mapping_step`` (``LocalMapping.cc``:
-triangulation, fusion, culls, landmark statistics, local BA).
+``fishbirdeyevisualslam_tpu/slam/tracking.py`` but its relocalization:
+two-view initialization (``MonocularInitialization`` and
+``CreateInitialMapMonocular``), ``track_frame_core`` and its callees
+(``TrackWithMotionModel``, ``TrackLocalMap`` and the bird matching of
+``src/Tracking.cc``), and the keyframe policy, insertion and
+``local_mapping_step`` (``LocalMapping.cc``: triangulation, fusion, culls,
+landmark statistics, local BA).
 
 Two routes, as in the JAX package: on a CUDA device the projection matches go
 through the fused matcher kernels (``ops/cuda_matcher.py``), with candidate
@@ -33,9 +35,15 @@ from fishbirdeyevisualslam_torch.ops import cuda_matcher, matcher, vocab
 from fishbirdeyevisualslam_torch.slam import map_state as ms
 from fishbirdeyevisualslam_torch.slam.frame import Frame, desc_pm1_from_packed, inv_level_sigma2_lut
 from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+from fishbirdeyevisualslam_torch.solvers import initializer as init_mod
 from fishbirdeyevisualslam_torch.solvers.ba import OdomEdges, PointBlocks, bundle_adjust
 from fishbirdeyevisualslam_torch.solvers.pose_opt import BirdObs, FrontObs
+from fishbirdeyevisualslam_torch.solvers.sim3_solver import horn_alignment
 from fishbirdeyevisualslam_torch.solvers.triangulate import triangulate
+
+NOT_INITIALIZED = 0
+OK = 1
+LOST = 2
 
 
 class TrackObs(NamedTuple):
@@ -82,6 +90,175 @@ def match_bird_frames(f1: Frame, cfg: SystemConfig, f2: Frame, T12_b) -> matcher
     res = matcher.match(f1.bird_desc_pm1, f2.bird_desc_pm1, compat,
                         max_dist=float(cfg.matcher.th_low), ratio=cfg.matcher.nn_ratio_tracking)
     return matcher.resolve_duplicates(res, f2.bird_uv.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def match_for_init(f1: Frame, f2: Frame, cfg: SystemConfig) -> matcher.MatchResult:
+    """``SearchForInitialization`` (``ORBmatcher.cc:406``): a 100 px window,
+    ratio 0.9, rotation consistency and one-to-one.  All levels are searched
+    unless ``init_level0_only`` pins the reference's level-0 matching."""
+    compat = matcher.window_mask(f1.uv_raw, f2.uv_raw, 100.0)
+    compat = compat & f1.kp_valid[:, None] & f2.kp_valid[None, :]
+    if cfg.tracking.init_level0_only:
+        compat = compat & (f1.octave == 0)[:, None] & (f2.octave == 0)[None, :]
+    res = matcher.match(f1.desc_pm1, f2.desc_pm1, compat, max_dist=float(cfg.matcher.th_low),
+                        ratio=cfg.matcher.nn_ratio_tracking)
+    res = matcher.rotation_consistency(f1.angle, f2.angle, res, cfg.matcher.histo_length)
+    return matcher.resolve_duplicates(res, f2.uv_raw.shape[0])
+
+
+def _bird_pairs(f1: Frame, f2: Frame, cfg: SystemConfig):
+    """The bird keypoints of ``f1`` matched in ``f2`` under the odometry
+    transform and within 0.15 m of their transported partner (the 3D gate of
+    ``FilterBirdOutlier``): (ok (FB,), partner index (FB,))."""
+    FB = f1.bird_uv.shape[0]
+    T12_b = odo.preintegrate_base(f1.odom, f2.odom)
+    bres = match_bird_frames(f1, cfg, f2, T12_b)
+    idx = bres.idx.clamp(0, FB - 1)
+    p2_in_1 = se3.transform(T12_b, f2.bird_base)
+    partner = torch.where(bres.ok[:, None], p2_in_1[idx.long()], 0.0)
+    d = torch.linalg.vector_norm(f1.bird_base - partner, dim=-1)
+    return bres.ok & (d < 0.15), idx
+
+
+def _matched_uv2(f1: Frame, f2: Frame, res: matcher.MatchResult):
+    P = f1.uv.shape[0]
+    return torch.where(res.ok[:, None], f2.uv[res.idx.clamp(0, P - 1).long()], 0.0)
+
+
+def bird_seeded_init(f1: Frame, f2: Frame, cfg: SystemConfig, res_front: matcher.MatchResult):
+    """Two-view initialization seeded by the bird view (an extension of the
+    reference): when F/H and the odometry-rotation re-init fail, the bird
+    keypoints still carry metric 3D.  The relative pose is solved in closed
+    form (Horn) from the matched bird points of the two frames, and the front
+    matches are triangulated under it.  Returns (InitResult, n_bird_inliers)."""
+    ok3d, idx = _bird_pairs(f1, f2, cfg)
+    n_bird = torch.sum(ok3d.to(torch.int32))
+    T21 = horn_alignment(f2.bird_cam[idx.long()], f1.bird_cam, ok3d.to(torch.float32))
+    nF, maskF, triF = init_mod._census(cfg.camera, se3.quat_to_matrix(T21[:4])[None],
+                                       T21[None, 4:], f1.uv, _matched_uv2(f1, f2, res_front),
+                                       res_front.ok, 1.0)
+    success = n_bird >= cfg.tracking.min_bird_init_matches
+    return init_mod.InitResult(success, T21, triF.Xw[0], maskF[0] & success, nF[0],
+                               torch.zeros_like(success)), n_bird
+
+
+def _permute_front(f: Frame, perm) -> Frame:
+    """The Frame with its front-keypoint arrays gathered by ``perm``."""
+    p = perm.long()
+    return f._replace(uv_raw=f.uv_raw[p], uv=f.uv[p], octave=f.octave[p], angle=f.angle[p],
+                      desc=f.desc[p], desc_pm1=f.desc_pm1[p], kp_valid=f.kp_valid[p])
+
+
+def truncate_init_frames(f1: Frame, f2: Frame, res: matcher.MatchResult,
+                         init_out: init_mod.InitResult, F: int):
+    """Cut the init pair's doubled extraction budget (``Tracking.cc:127-133``)
+    down to the keyframe capacity ``F``: matched features first on both
+    sides, then the other valid ones (stable orders); the match indices and
+    the per-feature init outputs follow the new layout.  ``f2``'s matched
+    features are marked through the matched rows only (the JAX package routes
+    the other rows to feature F2-1 and may lose its mark there)."""
+    F2 = f2.uv.shape[0]
+    i32 = torch.int32
+    key1 = (res.ok & init_out.triangulated).to(i32) * 4 + res.ok.to(i32) * 2 \
+        + f1.kp_valid.to(i32)
+    perm1 = torch.argsort(-key1, stable=True)[:F]
+    matched2 = ms.put_rows(torch.zeros(F2, dtype=torch.bool, device=res.ok.device),
+                           res.idx.clamp(0, F2 - 1), res.ok, res.ok)
+    key2 = matched2.to(i32) * 2 + f2.kp_valid.to(i32)
+    perm2 = torch.argsort(-key2, stable=True)[:F]
+    inv2 = torch.full((F2,), F2, dtype=i32, device=res.ok.device)
+    inv2[perm2] = torch.arange(F, dtype=i32, device=res.ok.device)
+    idx_new = inv2[res.idx[perm1].clamp(0, F2 - 1).long()]
+    ok_new = res.ok[perm1] & (idx_new < F)
+    res_new = matcher.MatchResult(torch.where(ok_new, idx_new, -1),
+                                  torch.where(ok_new, res.dist[perm1], matcher.BIG), ok_new)
+    init_new = init_out._replace(Xw=init_out.Xw[perm1],
+                                 triangulated=init_out.triangulated[perm1] & ok_new)
+    return _permute_front(f1, perm1), _permute_front(f2, perm2), res_new, init_new
+
+
+def apply_world_gauge(m: ms.MapState, Tcw1) -> ms.MapState:
+    """Re-express a map whose gauge is its first camera (keyframe 0 at the
+    identity) in a world where that camera has pose ``Tcw1``: a submap after a
+    reset is chained onto the dead-reckoned continuation of the one before,
+    so the exported trajectory stays in one world frame."""
+    Twc1 = se3.inverse(Tcw1)
+    return m._replace(
+        kf_Tcw=se3.compose(m.kf_Tcw, Tcw1),
+        mp_pos=se3.transform(Twc1, m.mp_pos),
+        bp_pos=se3.transform(Twc1, m.bp_pos),
+        mp_normal=se3.quat_rotate(Twc1[:4], m.mp_normal),
+    )
+
+
+def create_initial_map(f1: Frame, f2: Frame, init_out: init_mod.InitResult, cfg: SystemConfig,
+                       match_res: matcher.MatchResult, frame_ids, device=None) -> ms.MapState:
+    """``CreateInitialMapMonocular`` (``Tracking.cc:901-1053``): two keyframes
+    (the first the world origin), the triangulated front points (metric
+    through the odometry) with their descriptors from ``f2``, and bird points
+    from the bird match between the two frames.  The second keyframe's rows
+    are written through the matched features only (the JAX package routes
+    the other rows to feature F-1 / FB-1, and a match of that feature can
+    lose its write there; ROADMAP, queue 3)."""
+    dev = resolve_device(device)
+    f1, f2 = to_device(f1, dev), to_device(f2, dev)
+    init_out, match_res = to_device(init_out, dev), to_device(match_res, dev)
+    i32 = torch.int32
+    m = ms.empty_map(cfg, device=dev)
+    m = _write_kf(m, 0, f1, se3.identity(device=dev), True, int(frame_ids[0]))
+    m = _write_kf(m, 1, f2, init_out.T21, False, int(frame_ids[1]))
+
+    F = f1.uv.shape[0]
+    ok = match_res.ok & init_out.triangulated
+    pt_ids, ok = ms.alloc_slots(m.mp_valid, ok)
+    feat2 = match_res.idx.clamp(0, F - 1)
+    f2l = feat2.long()
+    put = functools.partial(ms.put_rows, idx=pt_ids, ok=ok)
+    kf_mp = m.kf_mp.clone()
+    kf_mp[0] = torch.where(ok, pt_ids, -1)
+    kf_mp[1] = ms.put_rows(kf_mp[1], feat2, ok, pt_ids)
+    m = m._replace(
+        mp_pos=put(m.mp_pos, values=init_out.Xw),
+        mp_desc=put(m.mp_desc, values=f2.desc[f2l]),
+        mp_desc_pm1=put(m.mp_desc_pm1, values=f2.desc_pm1[f2l]),
+        mp_valid=put(m.mp_valid, values=torch.ones_like(ok)),
+        mp_ref_kf=put(m.mp_ref_kf, values=torch.ones(F, dtype=i32, device=dev)),
+        mp_first_kf=torch.zeros_like(m.mp_first_kf),
+        n_mp=torch.sum(ok.to(i32)).to(i32),
+        kf_mp=kf_mp,
+    )
+    feats1 = torch.arange(F, dtype=i32, device=dev)
+    m = ms.add_observation(m, pt_ids, _slot_tensor(0, dev), feats1, ok)
+    m = ms.add_observation(m, pt_ids, _slot_tensor(1, dev), feat2, ok)
+    if not cfg.flags.have_bird:
+        return m
+
+    # bird points: the world is camera 1's frame, so a bird point's world
+    # position is its camera-1 position
+    FB = f1.bird_uv.shape[0]
+    bok, bfeat2 = _bird_pairs(f1, f2, cfg)
+    bids, bok = ms.alloc_slots(m.bp_valid, bok)
+    put = functools.partial(ms.put_rows, idx=bids, ok=bok)
+    kf_bird_mp = m.kf_bird_mp.clone()
+    kf_bird_mp[0] = torch.where(bok, bids, -1)
+    kf_bird_mp[1] = ms.put_rows(kf_bird_mp[1], bfeat2, bok, bids)
+    m = m._replace(
+        bp_pos=put(m.bp_pos, values=f1.bird_cam),
+        bp_desc=put(m.bp_desc, values=f1.bird_desc),
+        bp_desc_pm1=put(m.bp_desc_pm1, values=f1.bird_desc_pm1),
+        bp_valid=put(m.bp_valid, values=torch.ones_like(bok)),
+        bp_ref_kf=put(m.bp_ref_kf, values=torch.zeros(FB, dtype=i32, device=dev)),
+        n_bp=torch.sum(bok.to(i32)).to(i32),
+        kf_bird_mp=kf_bird_mp,
+    )
+    bfeats1 = torch.arange(FB, dtype=i32, device=dev)
+    m = ms.add_bird_observation(m, bids, _slot_tensor(0, dev), bfeats1, bok)
+    return ms.add_bird_observation(m, bids, _slot_tensor(1, dev), bfeat2, bok)
 
 
 def _front_gates_arrays(cfg: SystemConfig, Tcw_pred, pos, valid, min_dist, max_dist, normal,

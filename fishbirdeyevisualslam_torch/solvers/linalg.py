@@ -46,6 +46,13 @@ def nullvec(A):
     return smallest_right_singular_vectors(A, 1)[..., 0, :]
 
 
+def det3(A):
+    """Batched 3x3 determinant by cofactors along the first row."""
+    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
+            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
+            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
+
+
 def inv3(A):
     """Batched 3x3 inverse by adjugate over determinant (|det| floored at 1e-18)."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]

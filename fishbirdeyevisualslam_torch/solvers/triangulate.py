@@ -62,15 +62,17 @@ def _gn_step(cam: CameraConfig, X, views):
 def triangulate(cam: CameraConfig, Tcw1, Tcw2, uv1, uv2, max_reproj_err: float = 4.0,
                 min_parallax_cos: float = 0.99998) -> TriangulationResult:
     """DLT triangulation of N correspondences (undistorted pixels) seen from
-    two poses.  Accepted when finite, in front of both cameras, with parallax
+    two poses; a batch of poses (..., 1, 7) triangulates every correspondence
+    under each.  Accepted when finite, in front of both cameras, with parallax
     cos below ``min_parallax_cos`` and squared reprojection error below
     ``max_reproj_err`` in both views."""
     P1 = _projection_rows(cam, Tcw1)
     P2 = _projection_rows(cam, Tcw2)
     rows = []
     for P, uv in ((P1, uv1), (P2, uv2)):
-        rows += [uv[..., 0:1] * P[2] - P[0], uv[..., 1:2] * P[2] - P[1]]
-    A = torch.stack(rows, dim=-2)                                   # (N, 4, 4)
+        rows += [uv[..., 0:1] * P[..., 2, :] - P[..., 0, :],
+                 uv[..., 1:2] * P[..., 2, :] - P[..., 1, :]]
+    A = torch.stack(torch.broadcast_tensors(*rows), dim=-2)        # (..., N, 4, 4)
     A = A / torch.clamp(torch.linalg.vector_norm(A, dim=-1, keepdim=True), min=1e-12)
     X_h = linalg.nullvec(A)
     w_ok = torch.abs(X_h[..., 3]) > 1e-9

@@ -501,3 +501,63 @@ def test_local_mapping_step_card(dev):
     v = ref.mp_valid & torch.any((ref.obs_kf == 3) & ref.obs_valid, dim=1)
     uv = lambda m: camera.project_pinhole(TCFG.camera, se3.transform(ref.kf_Tcw[3], m.mp_pos[v]))
     assert (uv(got) - uv(ref)).abs().max().item() < 0.02
+
+
+def test_patch_gather_init_budget(dev):
+    """The gather at the initialization budget (n_features_init = 4096
+    windows over a frame's front pyramid), which the facade's frames run
+    until it initializes."""
+    from scipy.ndimage import gaussian_filter
+    from fishbirdeyevisualslam_torch.config import SystemConfig
+    from fishbirdeyevisualslam_torch.ops import features
+    from fishbirdeyevisualslam_torch.ops import image as image_ops
+    orb = SystemConfig().orb
+    img = gaussian_filter(np.random.RandomState(0).rand(400, 950), 1.5)
+    img = torch.from_numpy(((img - img.min()) / (img.max() - img.min()) * 255)
+                           .astype(np.float32)).to(dev)
+    levels = image_ops.build_pyramid(img, orb.n_levels, orb.scale_factor)
+    maps = cuda_fast.fast_detect_levels(levels, float(orb.ini_th_fast), float(orb.min_th_fast))
+    budgets = image_ops.per_level_budget(orb.n_features_init, orb.n_levels, orb.scale_factor)
+    sels = [features._detect_level(s, r, orb, budgets[l]) for l, (s, r) in enumerate(maps)]
+    atlas, yx = features.level_atlas(levels, [s[0] for s in sels])
+    assert yx.shape[0] == orb.n_features_init
+    n0 = cuda_patch.extract_patches.launches
+    got = cuda_patch.extract_patches(atlas, yx, features.PATCH37)
+    assert cuda_patch.extract_patches.launches == n0 + 1
+    assert torch.equal(got, cuda_patch.extract_patches_plain(atlas, yx, features.PATCH37))
+
+
+def test_facade_card(dev):
+    """``SlamSystem.track`` over the first three frames of the arc drive on the
+    card and on the CPU, with the same draws, at the system test's capacity
+    (F=FB=512, an init budget of 1024): the same states, keyframes and
+    initialization route; the init pair's poses within 1e-3 (se3 log), the
+    tracked keyframe's within 1e-2 and the map's counts within max(5, 10%),
+    the bounds of ``tests/test_torch_system.py`` for two facades whose frame
+    builds differ in f32 rounding."""
+    import dataclasses
+    from fishbirdeyevisualslam_torch.geometry import se3
+    from fishbirdeyevisualslam_torch.io import synthetic
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+    from torch_scenes import TCFG
+    cfg = TCFG.replace(capacity=dataclasses.replace(TCFG.capacity, max_front_kp=512,
+                                                    max_bird_kp=512),
+                       orb=dataclasses.replace(TCFG.orb, n_features_init=1024))
+    seq = synthetic.make_sequence(cfg, n_frames=3, kind="arc", step=0.5, seed=0)
+
+    def run(d):
+        s = SlamSystem(cfg, device=d)
+        poses = np.stack([s.track(fr["front"], fr["bird"], fr["mask"], seq.odom[i],
+                                  fr["timestamp"]) for i, fr in enumerate(seq.frames)])
+        return s, poses
+
+    (card, p_card), (cpu, p_cpu) = run(dev), run("cpu")
+    assert [e.state for e in card.trajectory] == [e.state for e in cpu.trajectory] == [0, 1, 1]
+    np.testing.assert_array_equal(card.keyframe_indices(), cpu.keyframe_indices())
+    assert card.inits[0]["route"] == cpu.inits[0]["route"]
+    err = se3.log(se3.compose(torch.from_numpy(p_card), se3.inverse(torch.from_numpy(p_cpu))))
+    err = err.abs().amax(-1)
+    assert err[:2].max() <= 1e-3 and err[2] <= 1e-2, err
+    for k in ("mp_valid", "bp_valid"):
+        a, b = int(getattr(card.map, k).sum()), int(getattr(cpu.map, k).sum())
+        assert abs(a - b) <= max(5, 0.1 * b), (k, a, b)

@@ -10,8 +10,8 @@ that asks computes the value and writes it, a picklable tree of numpy arrays
 and tensors, into the run's shared temporary directory; the other workers
 load the file.  A worker that finds a value being computed elsewhere first
 computes the registered values nobody has started (those of modules with
-tests selected in this run), then waits for it.  A run without workers
-computes directly.
+tests selected in this run), the costliest first, then waits for it.  A run
+without workers computes directly.
 """
 
 import fcntl
@@ -19,13 +19,15 @@ import os
 import pickle
 from pathlib import Path
 
-_REGISTRY = {}   # name -> (the registering test module's path, compute)
+_REGISTRY = {}   # name -> (the registering test module's path, compute, cost)
 
 
-def register(name: str, module_file: str, compute) -> None:
+def register(name: str, module_file: str, compute, cost: float = 0.0) -> None:
     """``compute()`` gives the value of the fixture ``name`` of the test
-    module at ``module_file``."""
-    _REGISTRY[name] = (str(Path(module_file).resolve()), compute)
+    module at ``module_file``; ``cost``, its wall seconds on one core, orders
+    the values a waiting worker computes (the longest first, so that the run
+    does not end waiting for one started late)."""
+    _REGISTRY[name] = (str(Path(module_file).resolve()), compute, cost)
 
 
 def _produce(root: Path, name: str, blocking: bool) -> bool:
@@ -52,7 +54,7 @@ def shared(request, tmp_path_factory, name: str):
     root = tmp_path_factory.getbasetemp().parent       # the run's directory, above the workers'
     if not _produce(root, name, blocking=False):
         selected = {str(Path(str(item.fspath)).resolve()) for item in request.session.items}
-        for other, (module, _) in list(_REGISTRY.items()):
+        for other, (module, _, _) in sorted(_REGISTRY.items(), key=lambda kv: -kv[1][2]):
             if other != name and module in selected and not (root / f"{other}.pkl").exists():
                 _produce(root, other, blocking=False)
         _produce(root, name, blocking=True)
