@@ -6,6 +6,8 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --profile       # all phases + the profiled frame's op table
     python3 chip_smoke.py --facade-only   # build + phase 5 (the facade drive) only
+    python3 chip_smoke.py --recovery-only # build + phase 6 (recovery) only
+    python3 chip_smoke.py --loop-only     # build + phase 7 (loop closing) only
 
 Phases, each printing its lines:
   1. the card and the toolchain; the kernels built from
@@ -27,7 +29,8 @@ Phases, each printing its lines:
   4. the stream's next frame through the kernels' plain versions, and its
      tracking through the CPU's dense route, each compared with the kernels;
   5. the entry point, SlamSystem(cfg, device=card).track, over a 30-frame arc
-     drive rendered by io/synthetic.py at full width: two-view initialization,
+     drive rendered by io/synthetic.py at full width (in a process pool, as
+     are the drives of phases 6 and 7): two-view initialization,
      tracking, keyframes and the synchronous local mapping step; the
      initialization's frame and route, each frame's state, per keyframe the
      synchronised times of both mapping stages, host syncs, window sizes and
@@ -37,27 +40,53 @@ Phases, each printing its lines:
      keyframe's mapping step held against the CPU and run twice on the card
      (bit-identical); then reset() with a re-initialization, and
      localization mode, on a second facade over the same drive, as
-     tests/test_system_modes.py drives them.
-Then the kernel table as one JSON line, the card's name and power limit, and
-the device line.  Any failed check exits non-zero.  Needs no JAX.
+     tests/test_system_modes.py drives them;
+  6. recovery: the facade over a 42-frame render of the arc, whose tracking
+     is lost on frame 12 (each frame's state, route and inliers; no frame
+     may raise, every pose finite, the first LOST spell over within 3
+     frames; kernels 4 and 5 launched on the LOST frames), then a copy of
+     phase 5's facade after 14 frames kidnapped as tests/test_reloc.py does
+     (18 m and 0.3 rad), which must relocalize on frame 6 within 1.0 m of
+     its own estimate;
+  7. loop closing: the facade over tests/test_loop_closing.py's 160-frame
+     rectangle (odometry noise 0.02) with an ATE under that test's 0.5 m;
+     every loop candidate tried (inliers, projected matches, odometry vet)
+     and each closure's stage times.  The JAX package closes no loop on this
+     render (its odometry vet turns every candidate down), so the correction
+     runs on the drive's first closure or else on its first candidate past
+     the RANSAC and the projection gate, closed from its inputs with the vet
+     off: twice on the card (bit-identical), once on the CPU with the same
+     draws (the same candidate, poses within 1e-3, front points p99 <= 1.0
+     px), and its global BA and essential graph profiled.
+Then the kernel table as one JSON line (launches summed over the drives of
+phases 5-7), the card's name and power limit, and the device line.  Any
+failed check exits non-zero.  Needs no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
-import numpy as np
+# numpy's OpenBLAS on one thread: the drives' renders (small matrix-vector
+# products over every pixel) run in RENDER_WORKERS processes, and OpenBLAS's
+# own threads in each of them made the render 2x slower than serial
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+import numpy as np  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM3 bandwidth
@@ -817,26 +846,44 @@ def _sync(torch, dev):
         torch.cuda.synchronize(dev)
 
 
+def _sync_site(depth: int = 3) -> str:
+    """The call site of a host sync: the innermost ``depth`` frames of the
+    port's package (file:line function), the op's own line first."""
+    frames = [f for f in traceback.extract_stack() if "fishbirdeyevisualslam_torch" in f.filename]
+    return " < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                      for f in frames[::-1][:depth]) or "outside the port"
+
+
 @contextlib.contextmanager
-def count_syncs(torch, dev, out: list):
+def count_syncs(torch, dev, out: list, sites=None):
     """Append to ``out`` the host syncs of the block that
     ``torch.cuda.set_sync_debug_mode`` warns of: a lower bound, since that
-    detector does not see every synchronising operation.  A block nested in
-    another counts its own syncs, and the outer block does not see them.  On
-    the CPU, nothing to count."""
+    detector does not see every synchronising operation.  ``sites`` (a
+    ``collections.Counter``), where given, counts them by call site
+    (``_sync_site``).  A block nested in another counts its own syncs, and
+    the outer block does not see them.  On the CPU, nothing to count."""
     if dev.type != "cuda":
         yield
         out.append(0)
         return
+    n = [0]
+
+    def seen(message, *_args, **_kwargs):
+        if "synchroniz" in str(message):
+            n[0] += 1
+            if sites is not None:
+                sites[_sync_site()] += 1
+
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as w:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = seen
         try:
             yield
         finally:
             torch.cuda.set_sync_debug_mode(mode)
-    out.append(sum("synchroniz" in str(x.message) for x in w))
+    out.append(n[0])
 
 
 def map_diff(torch, cfg, a, b, new_kf: int) -> dict:
@@ -912,10 +959,10 @@ def mapping_step_diffs(torch, cfg, dev, m0, slot: int, n_nb: int):
     return map_diff(torch, cfg, got, ref, slot), map_diff(torch, cfg, one, ref, slot), t_cpu
 
 
-def profile_call(torch, label: str, run) -> None:
+def profile_call(torch, label: str, run, tables: bool = True) -> None:
     """One call of ``run`` (after a warm-up call) under torch.profiler: wall,
-    device busy time and activities, and the ops that cost the device and
-    the host most."""
+    device busy time and activities, and with ``tables`` the ops that cost
+    the device and the host most."""
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
@@ -929,9 +976,10 @@ def profile_call(torch, label: str, run) -> None:
     print(f"[profile] one {label}: {wall:.1f} ms wall (profiled), {len(kernels)} device "
           f"activities, device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of the wall time)",
           flush=True)
-    ka = prof.key_averages()
-    print(ka.table(sort_by="cuda_time_total", row_limit=12))
-    print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
+    if tables:
+        ka = prof.key_averages()
+        print(ka.table(sort_by="cuda_time_total", row_limit=12))
+        print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
 
 
 def profile_initialize(torch, cfg, dev, seq, ini: dict) -> None:
@@ -1029,7 +1077,7 @@ def stage_timers(torch, dev, out: dict):
 
 
 def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
-                 survey: bool = False):
+                 survey: bool = False, snap: dict | None = None):
     """The port's entry point, ``SlamSystem(cfg, device=dev).track``, over an
     arc drive rendered by the port's copy of io/synthetic.py: two-view
     initialization at the doubled front budget, tracking, keyframe insertion
@@ -1045,20 +1093,19 @@ def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
     the per-keyframe rows, the launches of the patch gather at the init
     budget).  With ``survey``, the mapping step of every fourth keyframe and
     of the last is held against the CPU instead (the readings behind that
-    check's bound), and nothing after it runs."""
+    check's bound), and nothing after it runs.  ``snap`` receives a copy of
+    the facade after N_KIDNAP frames and the drive (phase 6's kidnap)."""
+    import copy
     from fishbirdeyevisualslam_torch.geometry import se3
-    from fishbirdeyevisualslam_torch.io import evaluate, synthetic
-    from fishbirdeyevisualslam_torch.ops import cuda_fast, cuda_matcher, cuda_patch
+    from fishbirdeyevisualslam_torch.io import evaluate
     from fishbirdeyevisualslam_torch.slam import tracking as tr
     from fishbirdeyevisualslam_torch.slam.system import SlamSystem
-    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 
     cap = cfg.capacity
     n_nb = cfg.tracking.mapping_neighbors
-    t0 = time.perf_counter()
-    seq = synthetic.make_sequence(cfg, n_frames=n_frames, kind="arc", step=MAP_STEP, seed=0)
-    print(f"[facade] rendered an arc drive of {n_frames} frames, {MAP_STEP} m per frame, in "
-          f"{time.perf_counter() - t0:.1f} s (front {cfg.camera.width}x{cfg.camera.height}, "
+    seq = render_sequence(cfg, n_frames, "arc", MAP_STEP, seed=0, check=(0, n_frames - 1))
+    print(f"[facade] an arc drive of {n_frames} frames, {MAP_STEP} m per frame (front "
+          f"{cfg.camera.width}x{cfg.camera.height}, "
           f"bird {cfg.bird.cols}x{cfg.bird.rows}; K={cap.max_keyframes} P={cap.max_points} "
           f"PB={cap.max_bird_points} M={cap.max_obs_per_point}, {cap.max_front_kp}+"
           f"{cap.max_bird_kp} keypoints, {cfg.orb.n_features_init} front until initialized, "
@@ -1069,9 +1116,7 @@ def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
         fr = seq.frames[i]
         return sys_.track(fr["front"], fr["bird"], fr["mask"], seq.odom[i], fr["timestamp"])
 
-    counters = (cuda_fast.fast_detect_levels, cuda_patch.extract_patches,
-                cuda_matcher.fused_projection_match_dual, cuda_matcher.fused_projection_match,
-                cuda_pose_opt.pose_optimization)
+    counters = kernel_counters()
     sys_ = SlamSystem(cfg, device=dev)
     rows, captured, frame_syncs = [], {}, []
     for c in counters:
@@ -1093,6 +1138,8 @@ def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
                 scalars.append((i, sc[0], sc[1], sc[4]))
             if sys_.trajectory[-1].state == tr.OK:
                 frame_syncs.append((i, sys_.trajectory[-1].is_keyframe, syncs[0]))
+            if snap is not None and i == N_KIDNAP - 1:
+                snap.update(sys=copy.deepcopy(sys_), seq=seq)
     _sync(torch, dev)
     dt = time.perf_counter() - t_drive
     launches = {c.__name__: c.launches for c in counters}
@@ -1269,6 +1316,490 @@ def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
     return launches, ate, rows, n_init_frames
 
 
+# ---------------------------------------------------------------------------
+# rendering in a process pool (the drives of phases 5-7)
+# ---------------------------------------------------------------------------
+
+RENDER_WORKERS = 8
+_RENDER = {}
+
+
+def _render_child() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
+def _render_frame(i: int) -> dict:
+    from fishbirdeyevisualslam_torch.io import synthetic
+    return synthetic.render_frame(_RENDER["world"], _RENDER["cfg"], _RENDER["gt"][i], i)
+
+
+def render_sequence(cfg, n_frames: int, kind: str, step: float, odom_noise: float = 0.0,
+                    seed: int = 0, check=()):
+    """``io/synthetic.py:make_sequence`` without degradation, its frames
+    rendered by ``RENDER_WORKERS`` forked processes that share the world it
+    built (they run numpy and CPU torch only, never the card); the frames
+    in ``check`` are rendered again here by ``make_sequence``'s serial route
+    (``synthetic.render_frame``) and must be equal."""
+    import multiprocessing as mp
+    from fishbirdeyevisualslam_torch.io import synthetic
+    workers = min(RENDER_WORKERS, os.cpu_count() or 1, n_frames)
+
+    def pooled(world, gt):
+        _RENDER.update(cfg=cfg, gt=gt, world=world)
+        with mp.get_context("fork").Pool(workers, _render_child) as pool:
+            return pool.map(_render_frame, range(n_frames))
+
+    t0 = time.perf_counter()
+    try:
+        seq = synthetic.make_sequence(cfg, n_frames, kind, odom_noise, seed, step, render=pooled)
+        dt = time.perf_counter() - t0
+        for i in check:
+            ref = synthetic.render_frame(_RENDER["world"], cfg, seq.gt[i], i)
+            if not all(np.array_equal(seq.frames[i][k], ref[k]) for k in ref):
+                fail(f"frame {i} of the pooled {kind} render differs from its serial render")
+    finally:
+        _RENDER.clear()
+    print(f"[render] {kind} drive of {n_frames} frames, {step} m per frame, odometry noise "
+          f"{odom_noise}, seed {seed}: {dt:.1f} s in {workers} processes (the world built "
+          f"once); frames {list(check)} equal to their serial render", flush=True)
+    return seq
+
+
+@contextlib.contextmanager
+def sync_timers(torch, dev, module, names, out: list, keep_args: bool = False,
+                summary=None):
+    """Wrap ``module``'s functions ``names`` (looked up at each call) with
+    synchronised timers: ``out`` gets (name, ms, with ``keep_args`` the
+    call's first argument) per call; ``summary`` (name -> function of the
+    result) appends what it gives to the entry.  The timers' own
+    synchronisations, and the summaries' host reads, are hidden from an
+    enclosing ``count_syncs``."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def quiet_sync():
+        with count_syncs(torch, dev, []):
+            _sync(torch, dev)
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            quiet_sync()
+            t1 = time.perf_counter()
+            r = fn(*args, **kwargs)
+            quiet_sync()
+            ms = (time.perf_counter() - t1) * 1e3
+            with count_syncs(torch, dev, []):
+                extra = (summary[name](r),) if summary and name in summary else ()
+            out.append((name, ms, args[0] if keep_args and args else None) + extra)
+            return r
+        return run
+
+    for n, fn in saved.items():
+        setattr(module, n, timed(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+@contextlib.contextmanager
+def loop_attempts(torch, dev, lc, out: list):
+    """Record each loop candidate ``LoopCloser.process_keyframe`` tries into
+    ``out``: the keyframe and the candidate (slot, insertion, frame id), the
+    RANSAC's inliers and success, the projected matches, the odometry vet's
+    (disagreement, tolerance) m, and ``closed`` (set by the caller).  The
+    records' own host reads are hidden from an enclosing ``count_syncs``."""
+    transform0, verify0, vet0 = (lc.compute_loop_transform, lc.verify_loop_projection,
+                                 lc.LoopCloser._odom_vet)
+
+    def transform(m, cur, cand, cfg_, gumbel):
+        S, n_in, ok = transform0(m, cur, cand, cfg_, gumbel)
+        with count_syncs(torch, dev, []):
+            seq, frame, cand_frame, n_in_h, ok_h = torch.stack(
+                [m.kf_seq[cur], m.kf_frame_id[cur], m.kf_frame_id[cand], n_in.to(torch.int32),
+                 ok.to(torch.int32)]).tolist()
+        out.append(dict(kf=cur, seq=seq, frame=frame, cand=cand, cand_frame=cand_frame,
+                        n_inliers=n_in_h, ok=bool(ok_h), n_proj=None, vet=None, closed=False))
+        return S, n_in, ok
+
+    def verify(m, cur, cand, T, cfg_):
+        n = verify0(m, cur, cand, T, cfg_)
+        with count_syncs(torch, dev, []):
+            out[-1]["n_proj"] = int(n)
+        return n
+
+    def vet(self, m, cur, cand, T):
+        out[-1]["vet"] = vet0(self, m, cur, cand, T)
+        return out[-1]["vet"]
+
+    lc.compute_loop_transform, lc.verify_loop_projection = transform, verify
+    lc.LoopCloser._odom_vet = vet
+    try:
+        yield
+    finally:
+        lc.compute_loop_transform, lc.verify_loop_projection = transform0, verify0
+        lc.LoopCloser._odom_vet = vet0
+
+
+def kernel_counters():
+    from fishbirdeyevisualslam_torch.ops import cuda_fast, cuda_matcher, cuda_patch
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+    return (cuda_fast.fast_detect_levels, cuda_patch.extract_patches,
+            cuda_matcher.fused_projection_match_dual, cuda_matcher.fused_projection_match,
+            cuda_pose_opt.pose_optimization)
+
+
+def _finite_poses(sys_) -> bool:
+    return bool(np.isfinite(sys_.frame_trajectory_Twb()).all())
+
+
+# ---------------------------------------------------------------------------
+# phase 6: recovery (the fallback, LOST, relocalization, re-initialization)
+# ---------------------------------------------------------------------------
+
+N_ARC = 42           # frames of the recovery drive: the arc whose tracking is lost on frame 12
+N_KIDNAP = 14        # frames of phase 5's drive behind the kidnapped facade (tests/test_reloc.py)
+KIDNAP_REVISIT = 6
+KIDNAP_DRIFT = (0.0, 0.0, 0.3, 18.0, 9.0, 0.0)   # se3 of the corrupted belief
+MAX_LOST_SPELL = 3   # frames: the JAX facade relocalized on the first LOST frame of this arc
+
+
+def phase_recovery(torch, cfg, dev, snap=None, profile: bool = False):
+    """The facade over the 42-frame arc (``make_sequence(cfg, 42, "arc",
+    step=0.5, seed=0)``): each frame's state, route and inliers, the
+    synchronised stage times of the relocalizations and the kernels 4 and 5
+    launched on the LOST frames; then a facade over phase 5's first 14
+    frames (``snap``, or driven here) kidnapped as ``tests/test_reloc.py``
+    does and relocalized on the revisited frame 6, and that relocalization's
+    ``relocalize_against`` profiled.  Returns the kernel launches of the
+    arc's drive."""
+    from fishbirdeyevisualslam_torch.geometry import ipm, se3
+    from fishbirdeyevisualslam_torch.io import evaluate
+    from fishbirdeyevisualslam_torch.slam import loop_closing as lc
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+    from fishbirdeyevisualslam_torch.ops import cuda_matcher
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+
+    seq = render_sequence(cfg, N_ARC, "arc", MAP_STEP, seed=0, check=(0, N_ARC // 2, N_ARC - 1))
+    track = lambda s, i, odom=None: s.track(seq.frames[i]["front"], seq.frames[i]["bird"],
+                                            seq.frames[i]["mask"],
+                                            seq.odom[i] if odom is None else odom,
+                                            seq.frames[i]["timestamp"])
+    counters = kernel_counters()
+    k45 = (cuda_matcher.fused_projection_match, cuda_pose_opt.pose_optimization)
+    sys_ = SlamSystem(cfg, device=dev)
+    names = {tr.NOT_INITIALIZED: "uninit", tr.OK: "OK", tr.LOST: "LOST"}
+    stages, rows, lost_k45 = [], [], [0, 0]
+    reloc = ("relocalize_group_candidates", "relocalize_against")
+    pnp_summary = {"relocalize_against": lambda r: (int(r[2]), bool(r[3]))}
+    for c in counters:
+        c.launches = 0
+    t_drive = time.perf_counter()
+    with sync_timers(torch, dev, lc, reloc, stages, summary=pnp_summary):
+        for i in range(N_ARC):
+            was_lost = sys_.state == tr.LOST
+            n0 = [c.launches for c in k45]
+            n_st, syncs, sites = len(stages), [], collections.Counter()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            try:
+                with count_syncs(torch, dev, syncs, sites):
+                    track(sys_, i)
+            except NotImplementedError as e:
+                fail(f"frame {i} raised: {e}")
+            _sync(torch, dev)
+            ms = (time.perf_counter() - t1) * 1e3
+            if was_lost:
+                for j, c in enumerate(k45):
+                    lost_k45[j] += c.launches - n0[j]
+            rows.append(dict(frame=i, state=names[sys_.trajectory[-1].state],
+                             route=sys_.last_route, inliers=sys_.last_inliers, ms=ms,
+                             syncs=syncs[0], sites=sites, was_lost=was_lost,
+                             reloc=[(n, round(t, 2)) + tuple(x[3:]) for x in stages[n_st:]
+                                    for n, t in [x[:2]]]))
+    _sync(torch, dev)
+    dt = time.perf_counter() - t_drive
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"[recovery] {N_ARC} frames in {dt:.1f} s; per frame (frame, state, route, inliers, "
+          "synchronised ms): " + "; ".join(
+              f"{r['frame']} {r['state']} {r['route']} {r['inliers']} {r['ms']:.0f}"
+              for r in rows), flush=True)
+    for r in rows:
+        if r["reloc"]:
+            print(f"[recovery] frame {r['frame']} ({r['route']}): relocalization stages "
+                  f"(synchronised ms; relocalize_against's PnP inliers and success) "
+                  f"{r['reloc']}", flush=True)
+    print("[recovery] host syncs per frame (frame, syncs): of the frames that were LOST on "
+          f"entry {[(r['frame'], r['syncs']) for r in rows if r['was_lost']]}; of the tracked "
+          f"frames {[(r['frame'], r['syncs']) for r in rows if not r['was_lost']]}", flush=True)
+    lost_rows = [r for r in rows if r["was_lost"]]
+    print(f"[recovery] host syncs of the {len(lost_rows)} frames that were LOST on entry, by "
+          "call site (syncs, site: the port's innermost frames): "
+          f"{sum((r['sites'] for r in lost_rows), collections.Counter()).most_common()}",
+          flush=True)
+    lost = [r["frame"] for r in rows if r["state"] == "LOST"]
+    spells, start = [], None
+    for r in rows:
+        if r["state"] == "LOST" and start is None:
+            start = r["frame"]
+        elif r["state"] != "LOST" and start is not None:
+            spells.append((start, r["frame"] - start, r["route"]))
+            start = None
+    if start is not None:
+        spells.append((start, N_ARC - start, None))
+    Twb = sys_.frame_trajectory_Twb()
+    ate = evaluate.ate_rmse_vs_gt(Twb, seq.gt)
+    print(f"[recovery] LOST frames {lost}; spells (first frame, length, the route that ended "
+          f"it) {spells}; fallback frames {[r['frame'] for r in rows if r['route'] == 'fallback']}"
+          f"; keyframes {len(sys_.keyframe_indices())}; forced evictions "
+          f"{sys_.n_forced_kf_evictions}; loops closed {sys_.n_loops_closed}; ATE {ate:.4f} m; "
+          f"kernel launches over the drive {json.dumps(launches)}, on the LOST frames: "
+          f"fused_projection_match {lost_k45[0]}, pose_optimization {lost_k45[1]}", flush=True)
+    if not _finite_poses(sys_):
+        fail("a pose of the recovery drive is not finite")
+    if spells and (spells[0][1] > MAX_LOST_SPELL or spells[0][2] is None):
+        fail(f"the first LOST spell lasted {spells[0][1]} frames (bound {MAX_LOST_SPELL})")
+    if lost and dev.type == "cuda" and 0 in lost_k45:
+        fail(f"kernels 4 and 5 were not both launched on the LOST frames: {lost_k45}")
+    if dev.type == "cuda" and any(v == 0 for v in launches.values()):
+        fail(f"a kernel of the path was never launched: {launches}")
+
+    # --- the kidnapped facade (tests/test_reloc.py)
+    if snap is None:
+        seq5 = render_sequence(cfg, N_MAP, "arc", MAP_STEP, seed=0)
+        k = SlamSystem(cfg, device=dev)
+        for i in range(N_KIDNAP):
+            k.track(seq5.frames[i]["front"], seq5.frames[i]["bird"], seq5.frames[i]["mask"],
+                    seq5.odom[i], seq5.frames[i]["timestamp"])
+    else:
+        k, seq5 = snap["sys"], snap["seq"]
+    if k.state != tr.OK:
+        fail("the facade to kidnap is not tracking")
+    before = k.frame_trajectory_Twb()[KIDNAP_REVISIT]
+    drift = se3.exp(torch.tensor(KIDNAP_DRIFT, device=dev))
+    k.state, k.n_lost_frames, k._reloc_frame_id = tr.LOST, 1, -10000
+    k.last_Tcw = se3.compose(k.last_Tcw, drift)
+    fr = seq5.frames[KIDNAP_REVISIT]
+    stages = []
+    n0 = [c.launches for c in k45]
+    k_syncs, k_sites = [], collections.Counter()
+    with sync_timers(torch, dev, lc, reloc, stages, summary=pnp_summary):
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        with count_syncs(torch, dev, k_syncs, k_sites):
+            Tcw = k.track(fr["front"], fr["bird"], fr["mask"], seq5.odom[N_KIDNAP - 1],
+                          fr["timestamp"])
+        _sync(torch, dev)
+    ms = (time.perf_counter() - t1) * 1e3
+    Twb = ipm.Twb_from_Twc(cfg.extrinsics, se3.inverse(torch.from_numpy(Tcw))).numpy()
+    err = float(np.linalg.norm(Twb[4:6] - before[4:6]))
+    print(f"[recovery] kidnapped after {N_KIDNAP} frames of phase 5's drive (belief off by "
+          f"{KIDNAP_DRIFT}), frame {KIDNAP_REVISIT} revisited: state "
+          f"{names[k.state]}, route {k.last_route}, {k.last_inliers} inliers, {ms:.1f} ms "
+          f"synchronised, {k_syncs[0]} host syncs (stages {[(x[0], round(x[1], 2)) + tuple(x[3:]) for x in stages]}; "
+          f"kernels 4 and 5 "
+          f"launched {[c.launches - x for c, x in zip(k45, n0)]}); {err:.4f} m from its own "
+          "estimate before the kidnap (bound 1.0 m)", flush=True)
+    print(f"[recovery] the kidnapped frame's host syncs by call site: {k_sites.most_common()}",
+          flush=True)
+    if k.state != tr.OK or k.last_route != "relocalized" or not err < 1.0:
+        fail("the kidnapped facade did not relocalize")
+    if dev.type == "cuda":
+        from fishbirdeyevisualslam_torch.ops import vocab
+        from fishbirdeyevisualslam_torch.slam.frame import build_frame
+        from fishbirdeyevisualslam_torch.solvers.initializer import GumbelDraws
+        f = build_frame(fr["front"], fr["bird"], fr["mask"], seq5.odom[N_KIDNAP - 1],
+                        fr["timestamp"], cfg, cfg.capacity.max_front_kp, None,
+                        cfg.capacity.max_bird_kp, device=dev)
+        words = vocab.word_ids(f.desc_pm1)
+        cand = int(lc.relocalize_group_candidates(k.map, words, cfg, f.kp_valid)[0][0])
+        g = GumbelDraws(0)(1, lc.RANSAC_ITERS, f.uv.shape[0])[0].to(dev)
+        profile_call(torch, f"relocalize_against (candidate slot {cand}; ransac_pnp over "
+                            f"{lc.RANSAC_ITERS} hypotheses)",
+                     lambda: lc.relocalize_against(k.map, f.desc_pm1, words, cfg, f.uv,
+                                                   f.kp_valid, cand, g), tables=profile)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: loop closing
+# ---------------------------------------------------------------------------
+
+N_RECT = 160         # tests/test_loop_closing.py:141: the rectangle loop
+RECT_STEP = 0.35
+RECT_ODOM_NOISE = 0.02
+RECT_ATE_BOUND = 0.5   # m: that test's bound
+LOOP_FNS = ("detect_loop_groups", "compute_loop_transform", "verify_loop_projection",
+            "seed_loop_correction", "search_and_fuse", "loop_essential_graph", "global_ba")
+# the JAX package's facade over the same render (scripts/jax_arc_drive.py --kind rect
+# --frames 160 --run 160 --step 0.35 --odom-noise 0.02 --loop, on the CPU): no loop
+# closed, every candidate turned down, 21 of them by the odometry vet
+JAX_RECT = "0 loops closed, ATE 0.1929 m, LOST on 51 57 66 76 89 98 115 139 147 155"
+
+
+def phase_loop(torch, cfg, dev, profile: bool = False):
+    """The facade over the 160-frame rectangle of ``tests/test_loop_closing.py``
+    (odometry noise 0.02, seed 0), loop closing on: each frame's route and
+    inliers, every loop candidate tried (its RANSAC inliers, projected
+    matches and odometry vet), the closures with their stage times, the
+    loops closed and the ATE (bound 0.5 m).  The JAX package closes no loop
+    there (``JAX_RECT``), so the correction is exercised on the drive's first
+    closure or, failing one, on its first candidate that passed the RANSAC
+    and the projection gate, closed from its inputs with the odometry vet
+    off: twice on the card (bit-identical, every stage timed), once on the
+    CPU with the same draws (the same candidate, keyframe poses within 1e-3,
+    front points p99 <= PX99_BOUND px in their observing keyframes); its
+    global BA and essential graph profiled.  Returns the kernel launches of
+    the drive."""
+    import copy
+    from fishbirdeyevisualslam_torch.device import to_device
+    from fishbirdeyevisualslam_torch.io import evaluate
+    from fishbirdeyevisualslam_torch.slam import loop_closing as lc
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+
+    seq = render_sequence(cfg, N_RECT, "rect", RECT_STEP, RECT_ODOM_NOISE, seed=0,
+                          check=(0, N_RECT // 2, N_RECT - 1))
+    counters = kernel_counters()
+    sys_ = SlamSystem(cfg, device=dev)
+    stages, closures, first, routes, keyframe_syncs = [], [], {}, [], []
+    attempts, loop_sites = [], collections.Counter()
+    gate = cfg.tracking.loop_min_proj_matches
+    process0 = lc.LoopCloser.process_keyframe
+
+    def process(closer, m, cur_kf):
+        saved = copy.deepcopy(closer.__dict__ | {"tracer": None})
+        n_st, n_att = len(stages), len(attempts)
+        n5 = cuda_pose_opt.pose_optimization.launches
+        syncs = []
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        with count_syncs(torch, dev, syncs, loop_sites):
+            out = process0(closer, m, cur_kf)
+        _sync(torch, dev)
+        keyframe_syncs.append((len(attempts) - n_att, syncs[0]))
+        if out[1]:
+            attempts[-1]["closed"] = True
+            closures.append(dict(frame=sys_.frame_id, attempt=attempts[-1],
+                                 ms=(time.perf_counter() - t1) * 1e3,
+                                 stages=[(x[0], round(x[1], 1)) for x in stages[n_st:]],
+                                 pose_kernel=cuda_pose_opt.pose_optimization.launches - n5))
+        passed = [a for a in attempts[n_att:] if a["n_proj"] is not None
+                  and a["n_proj"] >= gate]
+        if passed and not first:
+            first.update(m=m, cur=cur_kf, closer=saved, frame=sys_.frame_id, attempt=passed[0],
+                         closed=out[1])
+        return out
+
+    for c in counters:
+        c.launches = 0
+    t_drive = time.perf_counter()
+    lc.LoopCloser.process_keyframe = process
+    try:
+        with loop_attempts(torch, dev, lc, attempts), \
+                sync_timers(torch, dev, lc, LOOP_FNS, stages):
+            for i in range(N_RECT):
+                fr = seq.frames[i]
+                try:
+                    sys_.track(fr["front"], fr["bird"], fr["mask"], seq.odom[i], fr["timestamp"])
+                except NotImplementedError as e:
+                    fail(f"frame {i} raised: {e}")
+                routes.append((i, sys_.last_route, sys_.last_inliers))
+    finally:
+        lc.LoopCloser.process_keyframe = process0
+    _sync(torch, dev)
+    dt = time.perf_counter() - t_drive
+    launches = {c.__name__: c.launches for c in counters}
+    states = [e.state for e in sys_.trajectory]
+    Twb = sys_.frame_trajectory_Twb()
+    ate = evaluate.ate_rmse_vs_gt(Twb, seq.gt)
+    detect = [x[1] for x in stages if x[0] == "detect_loop_groups"]
+    vet = lambda a: a["vet"] and tuple(round(v, 2) for v in a["vet"])
+    tried = [(a["frame"], a["cand_frame"], a["n_inliers"], a["n_proj"], vet(a)) for a in attempts]
+    print(f"[loop] {N_RECT} frames in {dt:.1f} s; LOST frames "
+          f"{[i for i, s in enumerate(states) if s == tr.LOST]}; keyframes "
+          f"{len(sys_.keyframe_indices())}; loop detections {len(detect)} (median "
+          f"{statistics.median(detect) if detect else 0:.1f} ms synchronised); candidates tried "
+          "(frame, candidate's frame, RANSAC inliers, projected matches, odometry vet: "
+          "disagreement / tolerance m) "
+          f"{tried}; "
+          f"loops closed {sys_.n_loops_closed}; ATE {ate:.4f} m over {len(Twb)} frames (bound "
+          f"{RECT_ATE_BOUND} m); the JAX package on this render: {JAX_RECT}; kernel launches "
+          f"{json.dumps(launches)}", flush=True)
+    print("[loop] host syncs of loop closing per keyframe (candidates tried, syncs): "
+          f"{keyframe_syncs}; by call site over the drive (syncs, site): "
+          f"{loop_sites.most_common()}", flush=True)
+    print("[loop] per frame (frame, route, inliers): " + "; ".join(
+        f"{i} {r} {n}" for i, r, n in routes), flush=True)
+    for c in closures:
+        a = c["attempt"]
+        print(f"[loop] closure on frame {c['frame']}: keyframe slot {a['kf']} (insertion "
+              f"{a['seq']}) with candidate slot {a['cand']} (frame {a['cand_frame']}): "
+              f"{a['n_inliers']} RANSAC inliers, {a['n_proj']} projected matches, odometry vet "
+              f"{vet(a)}; {c['ms']:.1f} ms synchronised, stages {c['stages']}; pose kernel "
+              f"launches {c['pose_kernel']}", flush=True)
+    if not _finite_poses(sys_):
+        fail("a pose of the loop drive is not finite")
+    if dev.type == "cuda" and any(v == 0 for v in launches.values()):
+        fail(f"a kernel of the path was never launched: {launches}")
+    if not ate < RECT_ATE_BOUND:
+        fail(f"the rectangle's ATE is {ate} m (bound {RECT_ATE_BOUND} m)")
+    if not first:
+        fail("no loop candidate passed the RANSAC and the projection gate")
+
+    # --- the correction at full width, from the captured inputs
+    rcfg = cfg if first["closed"] else cfg.replace(
+        tracking=dataclasses.replace(cfg.tracking, loop_odom_vet=False))
+
+    def replay(d, timed=None):
+        closer = lc.LoopCloser(rcfg)
+        closer.__dict__.update(copy.deepcopy(first["closer"]) | {"cfg": rcfg})
+        n5 = cuda_pose_opt.pose_optimization.launches
+        tried = []
+        with loop_attempts(torch, d, lc, tried), \
+                (sync_timers(torch, d, lc, LOOP_FNS, timed, keep_args=True)
+                 if timed is not None else contextlib.nullcontext()):
+            m, closed = closer.process_keyframe(to_device(first["m"], d), first["cur"])
+        return m, closed, tried[-1], cuda_pose_opt.pose_optimization.launches - n5
+
+    timed = []
+    runs = [replay(dev, timed), replay(dev)]
+    diff = [k for k, x, y in zip(runs[0][0]._fields, runs[0][0], runs[1][0])
+            if not torch.equal(x, y)]
+    t1 = time.perf_counter()
+    cpu = replay(torch.device("cpu"))
+    t_cpu = time.perf_counter() - t1
+    d = map_diff(torch, cfg, runs[0][0], cpu[0], first["cur"])
+    a = runs[0][2]
+    print(f"[loop] the correction at full width: the drive's first "
+          f"{'closure' if first['closed'] else 'candidate past the RANSAC and the projection gate (turned down by the odometry vet), closed with the vet off'}"
+          f", on frame {first['frame']}: keyframe frame {a['frame']} with candidate frame "
+          f"{a['cand_frame']}, {a['n_inliers']} RANSAC inliers, {a['n_proj']} projected matches; "
+          f"on the card: stages (synchronised ms) {[(x[0], round(x[1], 1)) for x in timed]}, "
+          f"pose kernel launches {runs[0][3]}; twice on the card, fields that differ {diff}; on "
+          f"the CPU ({t_cpu:.1f} s): closed {cpu[1]}, candidate frame {cpu[2]['cand_frame']}, "
+          f"{describe_diff(d)} (bounds: bit-identical, the same candidate, poses within 1e-3, "
+          f"front points p99 <= {PX99_BOUND} px)", flush=True)
+    if diff or not (runs[0][1] and cpu[1] and cpu[2]["cand"] == a["cand"]):
+        fail("the loop correction is not reproduced")
+    if not (d["dT"] <= 1e-3 and d["px99"] <= PX99_BOUND):
+        fail("the loop correction on the card and on the CPU disagree")
+    if dev.type == "cuda":
+        if runs[0][3] < 1:
+            fail("the loop correction launched no pose kernel")
+        inputs = {x[0]: x[2] for x in timed}
+        poses_meas = inputs["seed_loop_correction"].kf_Tcw
+        for name, run in (("global_ba", lambda: lc.global_ba(inputs["global_ba"], rcfg)),
+                          ("loop_essential_graph", lambda: lc.loop_essential_graph(
+                              inputs["loop_essential_graph"], first["cur"], a["cand"],
+                              poses_meas, rcfg))):
+            profile_call(torch, f"{name} of that correction", run, tables=profile)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1277,6 +1808,11 @@ def main() -> int:
                     help="also print the profiled frame's op table")
     ap.add_argument("--facade-only", action="store_true",
                     help="build the kernels and run phase 5, the facade drive, only (no result "
+                         "lines)")
+    ap.add_argument("--recovery-only", action="store_true",
+                    help="build the kernels and run phase 6, recovery, only (no result lines)")
+    ap.add_argument("--loop-only", action="store_true",
+                    help="build the kernels and run phase 7, loop closing, only (no result "
                          "lines)")
     ap.add_argument("--survey", action="store_true",
                     help="build the kernels, drive phase 5 and hold the mapping step of every "
@@ -1307,6 +1843,12 @@ def main() -> int:
     if args.facade_only or args.survey:
         phase_facade(torch, cfg, dev, profile=args.profile, survey=args.survey)
         return 0
+    if args.recovery_only:
+        phase_recovery(torch, cfg, dev, profile=args.profile)
+        return 0
+    if args.loop_only:
+        phase_loop(torch, cfg, dev, profile=args.profile)
+        return 0
     rows = phase_kernels(torch, cfg, dev)
     st = Stream(torch, cfg, dev, N_STREAM + N_PHASE + 2)
     rows.update(phase_pose_and_hamming(torch, cfg, dev, st))
@@ -1316,8 +1858,15 @@ def main() -> int:
         print(f"[slice] per frame: {fps:.2f} frames/s, {activities} device activities, "
               f"{slice_launches['pose_optimization'] / N_STREAM:g} pose kernel launches",
               flush=True)
-        # the table's launches are those of the entry point's drive (phase 5)
-        launches = phase_facade(torch, cfg, dev, profile=args.profile)[0]
+        # the table's launches are those of the entry point's drives (phases
+        # 5-7), each counted from 0 over its own drive
+        snap = {}
+        per_phase = [phase_facade(torch, cfg, dev, profile=args.profile, snap=snap)[0],
+                     phase_recovery(torch, cfg, dev, snap, profile=args.profile),
+                     phase_loop(torch, cfg, dev, profile=args.profile)]
+        launches = {k: sum(p[k] for p in per_phase) for k in per_phase[0]}
+        print("[drives] kernel launches (phase 5, 6, 7): " + json.dumps(
+            {k: [p[k] for p in per_phase] for k in per_phase[0]}), flush=True)
     by_name = {"fast": "fast_detect_levels", "patch": "extract_patches",
                "match_dual": "fused_projection_match_dual", "match": "fused_projection_match",
                "pose_opt": "pose_optimization", "hamming": "hamming_matrix_packed",

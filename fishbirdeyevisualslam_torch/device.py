@@ -22,6 +22,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host tensor copied to ``dev``; to a card through pinned memory, so
+    that the copy does not hold the host until the card has it."""
+    if dev.type != "cuda":
+        return x.to(dev)
+    return x.pin_memory().to(dev, non_blocking=True)
+
+
+def pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor ``i`` on ``x``'s device.  Indexing by a
+    0-d tensor reads it on the host first, which waits for the card."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
 def to_device(tup, dev: torch.device):
     """Move every tensor field of a NamedTuple to ``dev`` (a no-op for fields
     already there); other fields pass through."""

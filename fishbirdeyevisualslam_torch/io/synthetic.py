@@ -445,32 +445,39 @@ def degrade_contour(contour, dg: DegradeConfig, rng):
     return out
 
 
+def render_frame(world: World, cfg: SystemConfig, pose_se2, i: int) -> dict:
+    """Frame ``i`` of a sequence at ``pose_se2``, before any degradation: its
+    images depend only on the world and the pose."""
+    bird = render_bird(world, cfg, pose_se2)
+    mask, contour = bird_mask_and_contour(cfg, bird)
+    return dict(front=render_front(world, cfg, pose_se2), bird=bird, mask=mask, contour=contour,
+                timestamp=i / cfg.camera.fps)
+
+
 def make_sequence(cfg: SystemConfig, n_frames=40, kind="arc", odom_noise=0.0,
                   seed=0, step=0.35, degrade: "DegradeConfig | None" = None,
-                  ) -> SyntheticSequence:
+                  render=None) -> SyntheticSequence:
     """Render a sequence; pass ``degrade=DegradeConfig()`` for the
     sensor-degraded variant (contours are computed from the CLEAN bird image —
     the dataset's contour labels come from an upstream segmenter, not from the
-    degraded pixels — then corrupted by label dropout)."""
+    degraded pixels — then corrupted by label dropout).  ``render(world,
+    gt)``, where given, returns the clean frames ``render_frame(world, cfg,
+    gt[i], i)`` in order in place of the serial loop (a process pool's map,
+    say); the degradation draws from its own generator frame by frame after
+    them either way."""
     gt = make_trajectory(n_frames, kind, step=step, seed=seed)
     world = make_world(seed, traj=gt)
     odom = odometry_from_gt(gt, odom_noise, seed)
-    rng = np.random.RandomState(seed + 12345)
-    log_gain = 0.0
-    frames = []
-    for i in range(n_frames):
-        bird = render_bird(world, cfg, gt[i])
-        mask, contour = bird_mask_and_contour(cfg, bird)
-        front = render_front(world, cfg, gt[i])
-        if degrade is not None:
+    frames = (render(world, gt) if render is not None
+              else [render_frame(world, cfg, gt[i], i) for i in range(n_frames)])
+    if degrade is not None:
+        rng = np.random.RandomState(seed + 12345)
+        log_gain = 0.0
+        speed_px = degrade.motion_blur_px * step / 0.35
+        for fr in frames:
             log_gain = float(np.clip(log_gain + rng.randn() * degrade.exposure_walk,
                                      -degrade.exposure_clip, degrade.exposure_clip))
-            speed_px = degrade.motion_blur_px * step / 0.35
-            front = degrade_front(front, cfg, degrade, rng, log_gain, speed_px)
-            bird = degrade_bird(bird, cfg, degrade, rng, log_gain)
-            contour = degrade_contour(contour, degrade, rng)
-        frames.append(dict(
-            front=front, bird=bird, mask=mask, contour=contour,
-            timestamp=i / cfg.camera.fps,
-        ))
+            fr["front"] = degrade_front(fr["front"], cfg, degrade, rng, log_gain, speed_px)
+            fr["bird"] = degrade_bird(fr["bird"], cfg, degrade, rng, log_gain)
+            fr["contour"] = degrade_contour(fr["contour"], degrade, rng)
     return SyntheticSequence(gt=gt, odom=odom, frames=frames)

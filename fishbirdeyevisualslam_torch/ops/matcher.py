@@ -79,7 +79,7 @@ def rotation_consistency(angle_a, angle_b, res: MatchResult, histo_length: int =
     top = torch.sort(counts, descending=True, stable=True)
     top_c, top_i = top.values[:keep_bins], top.indices[:keep_bins]
     keep = top_c > min_frac * top_c[0]
-    keep[0] = True
+    keep[0].fill_(True)   # a Python value assigned by indexing is copied from the host
     bin_ok = torch.zeros(histo_length, dtype=torch.bool, device=rot.device)
     bin_ok[top_i] = keep
     ok = res.ok & bin_ok[bins.long()]

@@ -1,9 +1,11 @@
 """System facade — the port of ``fishbirdeyevisualslam_tpu/slam/system.py``
 in its synchronous mode (the reference's ``System`` and the ``Tracking``
 thread body, ``src/System.cc``, ``src/Tracking.cc:479-770``): the map state,
-the NOT_INITIALIZED / OK state machine, two-view initialization, tracking,
-the keyframe policy with insertion and local mapping run synchronously after
-it, and the per-frame trajectory.
+the NOT_INITIALIZED / OK / LOST state machine, two-view initialization,
+tracking with its reference-keyframe fallback, the keyframe policy with
+insertion, local mapping and loop closing run synchronously after it, the
+LOST state's recovery (bird-only tracking, BoW + PnP relocalization,
+re-initialization into a new submap), and the per-frame trajectory.
 
 ``SlamSystem.track`` is the entry point, one call per frame.  Everything runs
 on ``device`` (the current CUDA card unless the caller names another).  A
@@ -12,9 +14,8 @@ the host reads of a tracked frame that inserts no keyframe are those of
 ``track_frame_core`` and one copy of the frame's counts, pose and record.
 
 Not ported yet, and raising ``NotImplementedError`` where the JAX package
-would take them: asynchronous mapping (ROADMAP queue 1 item 4), loop closing
-and the ``TrackReferenceKeyFrame`` fallback after fewer than 10 motion-model
-matches (item 5), and the LOST state's recovery (items 5 and 6).
+would take them: asynchronous mapping (ROADMAP queue 1 item 4) and the Sim3
+loop correction of ``fix_scale = False`` (item 9, in ``LoopCloser``).
 """
 
 from __future__ import annotations
@@ -27,10 +28,12 @@ import numpy as np
 import torch
 
 from fishbirdeyevisualslam_torch.config import SystemConfig
-from fishbirdeyevisualslam_torch.device import resolve_device
+from fishbirdeyevisualslam_torch.device import resolve_device, upload
 from fishbirdeyevisualslam_torch.geometry import ipm, se3
 from fishbirdeyevisualslam_torch.geometry import odometry as odo
 from fishbirdeyevisualslam_torch.io.tracing import Tracer
+from fishbirdeyevisualslam_torch.ops import vocab
+from fishbirdeyevisualslam_torch.slam import loop_closing as lc
 from fishbirdeyevisualslam_torch.slam import map_state as ms
 from fishbirdeyevisualslam_torch.slam import tracking as tr
 from fishbirdeyevisualslam_torch.slam.frame import Frame, build_frame
@@ -78,6 +81,7 @@ class SlamSystem:
         self.last_kf_slot = -1
         self.last_kf_frame_id = -1
         self.frame_id = -1
+        self.n_lost_frames = 0
         self._reloc_frame_id = -10000
         self.trajectory: List[TrajectoryEntry] = []
         self._odom_history = {}   # trajectory index -> odometry (the pre-init backfill)
@@ -85,19 +89,26 @@ class SlamSystem:
         self._dead_kf_poses = {}  # frame id -> pose when its keyframe was culled
         self.frame_times: List[float] = []
         self.tracer = Tracer()
-        # loop closing (place recognition, Sim3 solver, pose graphs) is not
-        # ported yet (ROADMAP queue 1 item 5): it stays off, and track raises
-        # at a keyframe insertion if it is switched on
-        self.enable_loop_closing = False
+        self.loop_closer = lc.LoopCloser(cfg)
+        self.loop_closer.tracer = self.tracer
+        self.enable_loop_closing = True
+        self.n_loops_closed = 0
         self.n_forced_kf_evictions = 0
         # (Tcw, odom) of the last pose before a reset: the next initialization
         # chains its world gauge onto the dead-reckoned continuation of it
         self._reset_anchor = None
         self._velocity = se3.identity(device=self.device)
-        # the RANSAC hypotheses' Gumbel noise, drawn on the host (the JAX
+        # the RANSAC hypotheses' Gumbel noise of initialization,
+        # re-initialization and relocalization, drawn on the host (the JAX
         # package's PRNGKey(7) chain); replaceable by any callable of the
         # same signature
         self.draws = init_mod.GumbelDraws(7)
+        # how the last frame was tracked: "uninitialized", "init", "core", "fallback",
+        # "bird-only" (LOST, with or without a bird keyframe), "relocalized",
+        # "reinitialized" or "reset"; and its inliers where the route has a
+        # pose optimisation (the bird inliers of "bird-only")
+        self.last_route: Optional[str] = None
+        self.last_inliers: Optional[int] = None
         self.inits: List[dict] = []   # one record per successful initialization
         # the tracking core's counts of the last tracked frame: motion-model
         # matches, inliers, reference-keyframe points with 3 / 2 observations,
@@ -107,7 +118,7 @@ class SlamSystem:
 
     # ------------------------------------------------------------------ utils
     def _gumbel(self, n: int, n_points: int, n_iters: int = 200):
-        return tuple(g.to(self.device) for g in self.draws(n, n_iters, n_points))
+        return tuple(upload(g, self.device) for g in self.draws(n, n_iters, n_points))
 
     def _odom_T21(self, f1: Frame, f2: Frame):
         """T_c2_c1 from odometry (the initializer's scale and rotation)."""
@@ -252,6 +263,7 @@ class SlamSystem:
         return self._identity_record(f)
 
     def _identity_record(self, f: Frame):
+        self.last_route, self.last_inliers = "uninitialized", None
         Tcw = se3.identity(device=self.device)
         self._record(f, Tcw, False)
         return Tcw
@@ -323,6 +335,7 @@ class SlamSystem:
                                matches=n, T21=init_out.T21.cpu().numpy(), triangulated=counts[0],
                                n_mp=counts[1], n_bp=counts[2]))
         Tcw = m.kf_Tcw[1]
+        self.last_route, self.last_inliers = "init", None
         self._record(f, Tcw, True)
         return Tcw
 
@@ -350,6 +363,9 @@ class SlamSystem:
                                         f.odom)
         return se3.compose(self._velocity, self.last_Tcw)
 
+    def _fused(self) -> bool:
+        return self.cfg.tracking.use_fused_matcher and self.device.type == "cuda"
+
     def _track_ok(self, f: Frame):
         cfg = self.cfg
         m = self.map
@@ -359,28 +375,36 @@ class SlamSystem:
                                    last_f=tr.bird_only_view(self.last_frame),
                                    last_bp_idx=self.last_assoc.bp_idx, last_Tcw=self.last_Tcw,
                                    bird_maint_enabled=True, device=self.device)
-        self.map = m = core.map
         Tcw = core.Tcw
         assoc = tr.TrackObs(core.mp_idx, core.bp_idx)
         host = self._read(f, Tcw, core.scalars)
         self.last_scalars = host["scalars"]
         n_mm, n_in, nref3, nref2, n_bird_cur, n_ref_bird, n_kfs = host["scalars"]
+        self.last_route = "core"
         if n_mm < 10:
-            raise NotImplementedError(
-                f"frame {self.frame_id}: {n_mm} motion-model matches; the TrackReferenceKeyFrame "
-                "fallback needs relocalize_against, which is not ported yet (ROADMAP queue 1 "
-                "item 5)")
+            # TrackReferenceKeyFrame (Tracking.cc:1180-1244): BoW-gated match
+            # against the reference keyframe, then the local-map step again
+            # from its pose, on the map as it was before the core's updates
+            fb = self._fallback(m, f, Tcw_pred, n_mm)
+            if fb is not None:
+                n_in, Tcw, assoc = fb
+                host = None
+                self.last_route = "fallback"
+        self.last_inliers = n_in
+        self.map = m = core.map
         # TrackLocalMap's success gate (>= 30 inliers, Tracking.cc:1429-1441),
-        # relaxed to 10 within 2 fps frames of an initialization
+        # relaxed to 10 within 2 fps frames of an initialization or relocalization
         recent_reloc = self.frame_id - self._reloc_frame_id < 2 * cfg.camera.fps
         min_ok = 10 if recent_reloc else cfg.tracking.min_inliers_ok
         if n_in < min_ok:
             if int(m.kf_counter) <= 5 and not self.localization_only:
                 # lost with a barely-born map: full reset (Tracking.cc:731-740)
                 self.reset()
+                self.last_route = "reset"
                 self._record(f, Tcw, False)
                 return Tcw
             self.state = tr.LOST
+            self.n_lost_frames = 0
             self._record(f, Tcw, False, host)
             self.last_assoc = assoc
             return Tcw
@@ -394,24 +418,23 @@ class SlamSystem:
             n_bird_matched=n_bird_cur, n_ref_bird=n_ref_bird)
         is_kf = False
         if need:
-            slot, slot_ok = self._free_slot(m)
-            if not slot_ok:
+            slot, n_free, _ = self._slot_counts(m)
+            if not n_free:
                 # every slot live and culling found nothing: evict the
                 # least-connected eligible keyframe so insertion never stops
                 self.map = m = tr.force_evict_keyframe(m, cfg)
                 self.n_forced_kf_evictions += 1
                 self._refresh_kf_snapshot()
-                slot, slot_ok = self._free_slot(m)
-            need = slot_ok
+                slot, n_free, _ = self._slot_counts(m)
+            need = n_free > 0
         if need:
-            if self.enable_loop_closing:
-                raise NotImplementedError(
-                    "loop closing is not ported yet (ROADMAP queue 1 item 5); set "
-                    "enable_loop_closing = False")
             m = tr.insert_keyframe(m, f, assoc, Tcw, cfg, self.frame_id, slot=slot,
                                    device=self.device)
             m = tr.local_mapping_step(m, slot, cfg, cfg.tracking.mapping_neighbors,
                                       device=self.device)
+            if self.enable_loop_closing:
+                m, closed = self.loop_closer.process_keyframe(m, slot)
+                self.n_loops_closed += int(closed)
             self.map = m
             Tcw = m.kf_Tcw[slot]
             self._refresh_kf_snapshot()  # mapping may have culled a keyframe
@@ -422,17 +445,197 @@ class SlamSystem:
         self._record(f, Tcw, is_kf, None if is_kf else host)
         return Tcw
 
+    def _ransac_noise(self, n_points: int):
+        """One RANSAC's (128, n_points) Gumbel noise from ``draws``, on the device."""
+        return self._gumbel(1, n_points, lc.RANSAC_ITERS)[0]
+
+    def _fallback(self, m: ms.MapState, f: Frame, Tcw_pred, n_mm: int):
+        """The reference-keyframe fallback: relocalize against the last
+        keyframe; where that beats the motion model, the first pose
+        optimisation from its pose, the local-map and bird matches, the second
+        pose optimisation.  Returns (inliers, Tcw, associations) or None."""
+        cfg = self.cfg
+        words = vocab.word_ids(f.desc_pm1)
+        Tcw_r, mp_idx_r, n_r, ok_r = lc.relocalize_against(
+            m, f.desc_pm1, words, cfg, f.uv, f.kp_valid, self.last_kf_slot,
+            self._ransac_noise(f.uv.shape[0]))
+        n_r, ok_r = torch.stack([n_r.to(torch.int32), ok_r.to(torch.int32)]).tolist()
+        if not (n_r > n_mm and ok_r):
+            return None
+        fused = self._fused()
+        no_bird = torch.full_like(f.bird_octave, -1)
+        out1 = tr.pose_opt_step(m, f, tr.TrackObs(mp_idx_r, no_bird), cfg, Tcw_r, Tcw_pred)
+        pt_local, _ = tr.local_map_mask(m, mp_idx_r, cfg)
+        res2, _ = tr.match_map_points(m, f, cfg, out1.Tcw, pt_local, 12.0,
+                                      float(cfg.matcher.th_high), True, fused)
+        mp_idx = torch.where(mp_idx_r >= 0, mp_idx_r, res2.idx)
+        bwin = tr.bird_local_mask(m, cfg, out1.Tcw)
+        bres2 = tr.match_bird_points(m, f, cfg, out1.Tcw, bwin,
+                                     tr.bird_match_precompact(m, cfg, out1.Tcw, bwin, fused), fused)
+        out2 = tr.pose_opt_step(m, f, tr.TrackObs(mp_idx, bres2.idx), cfg, out1.Tcw, Tcw_pred)
+        assoc = tr.TrackObs(torch.where(out2.front_inlier, mp_idx, -1),
+                            torch.where(out2.bird_inlier, bres2.idx, -1))
+        return int(out2.n_inliers), out2.Tcw, assoc
+
     @staticmethod
-    def _free_slot(m: ms.MapState):
-        slot, ok, _ = tr.free_kf_slot(m)
-        slot, ok = torch.stack([slot, ok.to(torch.int32)]).tolist()
-        return slot, bool(ok)
+    def _slot_counts(m: ms.MapState):
+        """(first free slot, free slots, live keyframes), one host read."""
+        slot, _, n_free = tr.free_kf_slot(m)
+        return torch.stack([slot, n_free, torch.sum(m.kf_valid.to(torch.int32))]).tolist()
 
     def _track_lost(self, f: Frame):
-        raise NotImplementedError(
-            "the LOST state's recovery (bird-only tracking, relocalization, re-initialization "
-            "into a new submap) needs relocalize_against and the PnP solver, which are not "
-            "ported yet (ROADMAP queue 1 items 5 and 6)")
+        """Loss recovery (Tracking.cc:2395-2481): bird-only tracking, a bird
+        keyframe where the bird map needs one, relocalization, then the
+        re-initialization of a new submap against the last frame."""
+        cfg = self.cfg
+        m = self.map
+        F = f.uv.shape[0]
+        Tcw_pred = self._motion_prior(f)
+        self.n_lost_frames += 1
+        self.last_route = "bird-only"
+        no_front = torch.full_like(f.octave, -1)
+        # TrackUsingBird (Tracking.cc:2014-2061): bird-only pose refinement
+        # against the bird local map; the state stays LOST
+        Tcw = Tcw_pred
+        n_bird_avail = n_bird_matched = 0
+        if cfg.flags.have_bird:
+            fused = self._fused()
+            bwin = tr.bird_local_mask(m, cfg, Tcw_pred)
+            bres_idx = tr.match_bird_points(
+                m, f, cfg, Tcw_pred, bwin, tr.bird_match_precompact(m, cfg, Tcw_pred, bwin, fused),
+                fused).idx
+            n_bird_avail, n_bres = torch.stack(
+                [torch.sum(bwin.to(torch.int32)), torch.sum((bres_idx >= 0).to(torch.int32))]
+            ).tolist()
+            if n_bres >= 10:
+                outb = tr.pose_opt_step(m, f, tr.TrackObs(no_front, bres_idx), cfg, Tcw_pred)
+                n_bird_matched = int(outb.bird_inlier.sum())
+                if n_bird_matched >= 10:
+                    Tcw = outb.Tcw
+        else:
+            bres_idx = torch.full_like(f.bird_octave, -1)
+        self.last_inliers = n_bird_matched
+        slot, n_free, n_valid = self._slot_counts(m)
+        # slot-starved recovery: a map wedged at capacity blocks re-init for
+        # good; evict the least-connected keyframes until there is room
+        if (not self.localization_only and cfg.tracking.lost_eviction_valve
+                and n_free <= 2 and n_valid > 10):
+            for _ in range(4):
+                m = tr.force_evict_keyframe(m, cfg)
+                self.n_forced_kf_evictions += 1
+            self.map = m
+            self._refresh_kf_snapshot()
+            slot, n_free, n_valid = self._slot_counts(m)
+        # BirdNeedKF (Tracking.cc:2063-2083): extend the bird map with this
+        # frame where its matches cover under 70% of the local bird map, in
+        # maps of more than 5 keyframes
+        if (not self.localization_only and n_valid > 5 and n_free > 2
+                and self.frame_id - self.last_kf_frame_id > 2
+                and (n_bird_matched < 0.7 * n_bird_avail
+                     or (n_bird_matched < 10 and n_bird_avail > 10))
+                and int(f.bird_kp_valid.sum()) >= 20):
+            m = tr.insert_keyframe(m, f, tr.TrackObs(no_front, bres_idx), Tcw, cfg,
+                                   self.frame_id, slot=slot, device=self.device)
+            self.map = m
+            self.last_kf_slot = slot
+            self.last_kf_frame_id = self.frame_id
+            n_valid += 1
+
+        # relocalization: BoW group candidates, PnP against each in turn
+        # (Tracking.cc:2231-2392)
+        if n_valid >= 2:
+            words = vocab.word_ids(f.desc_pm1)
+            members, accs = lc.relocalize_group_candidates(m, words, cfg, f.kp_valid)
+            h = torch.cat([members.to(torch.float32), accs]).tolist()
+            n_top = members.shape[0]
+            tried = set()
+            for cand, acc in zip(h[:n_top], h[n_top:]):
+                cand = int(cand)
+                if acc <= 0.05 or cand in tried:
+                    continue
+                tried.add(cand)
+                Tcw_r, mp_idx, _, ok = lc.relocalize_against(
+                    m, f.desc_pm1, words, cfg, f.uv, f.kp_valid, cand, self._ransac_noise(F))
+                if not bool(ok):
+                    continue
+                out = tr.pose_opt_step(m, f, tr.TrackObs(mp_idx, torch.full_like(bres_idx, -1)),
+                                       cfg, Tcw_r)
+                n_in = int(out.n_inliers)
+                if n_in >= 15:
+                    self.state = tr.OK
+                    self._reloc_frame_id = self.frame_id
+                    self.last_route, self.last_inliers = "relocalized", n_in
+                    self.last_assoc = tr.TrackObs(torch.where(out.front_inlier, mp_idx, -1),
+                                                  torch.full_like(bres_idx, -1))
+                    self._record(f, out.Tcw, False)
+                    return out.Tcw
+
+        # re-initialization against the last frame, odometry-seeded
+        res = tr.match_for_init(self.last_frame, f, cfg)
+        if int(res.count) >= cfg.tracking.min_init_matches and n_free > 2:
+            T21_odom = self._odom_T21(self.last_frame, f)
+            uv2 = tr._matched_uv2(self.last_frame, f, res)
+            out = init_mod.reinitialize(cfg.camera, self.last_frame.uv, uv2, res.ok, T21_odom,
+                                        self._gumbel(1, res.ok.shape[0])[0])
+            if not bool(out.success) and cfg.flags.have_bird \
+                    and cfg.tracking.min_bird_init_matches > 0:
+                # the bird-seeded re-init: at small baselines the epipolar
+                # re-init has no parallax; bird keypoints carry metric 3D
+                out = tr.bird_seeded_init(self.last_frame, f, cfg, res)[0]
+            if bool(out.success):
+                m, slot = self._append_reinit_pair(m, self.last_frame, f, out, res)
+                self.map = m
+                self.state = tr.OK
+                self._reloc_frame_id = self.frame_id
+                self.last_route, self.last_inliers = "reinitialized", None
+                Tcw = m.kf_Tcw[slot]
+                self.last_kf_slot = slot
+                self.last_kf_frame_id = self.frame_id
+                self.last_assoc = tr.TrackObs(m.kf_mp[slot], m.kf_bird_mp[slot])
+                self._record(f, Tcw, True)
+                return Tcw
+        self._record(f, Tcw, False)
+        self.last_assoc = tr.TrackObs(no_front, torch.full_like(bres_idx, -1))
+        return Tcw
+
+    def _append_reinit_pair(self, m: ms.MapState, f1: Frame, f2: Frame,
+                            init_out: init_mod.InitResult, match_res):
+        """``CreateReInitialMapPoints`` (``Tracking.cc:1056-1159``): a keyframe
+        pair that starts a new submap, its first keyframe at the dead-reckoned
+        last pose, with the pair's triangulated points.  The second keyframe's
+        ``kf_mp`` row is written through the matched features only (the JAX
+        package routes the other rows to feature F-1, and a match of that
+        feature can lose its write there; ROADMAP, queue 3).  Returns (map,
+        the second keyframe's slot)."""
+        dev = m.kf_Tcw.device
+        i32 = torch.int32
+        Tcw1 = self.last_Tcw
+        Tcw2 = se3.compose(init_out.T21, Tcw1)
+        # the first two free slots in one host read (the caller saw > 2 free)
+        slot1, slot2 = torch.sort(m.kf_valid.to(torch.int8), stable=True).indices[:2].tolist()
+        m = tr._write_kf(m, slot1, f1, Tcw1, True, self.frame_id - 1)
+        m = tr._write_kf(m, slot2, f2, Tcw2, False, self.frame_id)
+        Xw = se3.transform(se3.inverse(Tcw1), init_out.Xw)
+        F = f1.uv.shape[0]
+        ok = match_res.ok & init_out.triangulated
+        dest, can = ms.alloc_slots(m.mp_valid, ok)
+        m = ms.reset_point_slots(m, dest, can, m.kf_seq[slot1])
+        feat2 = match_res.idx.clamp(0, F - 1)
+        f2l = feat2.long()
+        put = lambda x, values: ms.put_rows(x, dest, can, values)
+        kf_mp = m.kf_mp.clone()
+        kf_mp[slot1] = torch.where(can, dest, -1)
+        kf_mp[slot2] = ms.put_rows(torch.full((F,), -1, dtype=i32, device=dev), feat2, can, dest)
+        m = m._replace(
+            mp_pos=put(m.mp_pos, Xw), mp_desc=put(m.mp_desc, f2.desc[f2l]),
+            mp_desc_pm1=put(m.mp_desc_pm1, f2.desc_pm1[f2l]),
+            mp_valid=put(m.mp_valid, torch.ones_like(can)),
+            mp_ref_kf=put(m.mp_ref_kf, torch.full((F,), slot2, dtype=i32, device=dev)),
+            n_mp=(m.n_mp + torch.sum(can.to(i32))).to(i32),
+            kf_mp=kf_mp)
+        feats1 = torch.arange(F, dtype=i32, device=dev)
+        m = ms.add_observation(m, dest, tr._slot_tensor(slot1, dev), feats1, can)
+        return ms.add_observation(m, dest, tr._slot_tensor(slot2, dev), feat2, can), slot2
 
     def finish(self):
         """The synchronous mode has no mapping in flight: nothing to drain."""
@@ -463,6 +666,9 @@ class SlamSystem:
         self.last_assoc = None
         self.last_kf_slot = -1
         self.last_kf_frame_id = -1
+        self.n_lost_frames = 0
+        self.loop_closer = lc.LoopCloser(self.cfg)
+        self.loop_closer.tracer = self.tracer
 
     def activate_localization_mode(self):
         """``System::ActivateLocalizationMode``: no keyframe insertion or

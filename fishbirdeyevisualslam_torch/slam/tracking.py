@@ -1,5 +1,6 @@
 """Tracking and local mapping — the port of
-``fishbirdeyevisualslam_tpu/slam/tracking.py`` but its relocalization:
+``fishbirdeyevisualslam_tpu/slam/tracking.py`` but ``replay_bird_points``
+(asynchronous mapping's):
 two-view initialization (``MonocularInitialization`` and
 ``CreateInitialMapMonocular``), ``track_frame_core`` and its callees
 (``TrackWithMotionModel``, ``TrackLocalMap`` and the bird matching of
@@ -672,8 +673,14 @@ def _track_frame_core(m, f, cfg: SystemConfig, Tcw_pred, cand_last, ref_kf, last
 
 
 def _set_row(x, i: int, v):
+    """``x`` with row ``i`` set to ``v``; a Python number is filled in on the
+    device (assigning one through indexing copies it from the host, which
+    waits for the card)."""
     y = x.clone()
-    y[i] = v
+    if isinstance(v, torch.Tensor):
+        y[i] = v
+    else:
+        y[i].fill_(v)
     return y
 
 

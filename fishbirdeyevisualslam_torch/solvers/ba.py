@@ -133,6 +133,9 @@ def _block_diag(blocks):
     return torch.einsum("kl,kab->kalb", eye, blocks)
 
 
+_EDGE_CHUNK = 4096
+
+
 def _odom_terms(K: int, poses, edges: OdomEdges, w_scale):
     e, J1, J2 = res.odom_residuals(edges.T_meas, poses[edges.i.long()],
                                    poses[edges.j.long()])
@@ -144,7 +147,15 @@ def _odom_terms(K: int, poses, edges: OdomEdges, w_scale):
     bj = -torch.einsum("eki,e,ek->ei", J2, w, e)
     Oi, Oj = _one_hot(edges.i, K, w.dtype), _one_hot(edges.j, K, w.dtype)
     diag = torch.einsum("ek,eab->kab", Oi, Hii) + torch.einsum("ek,eab->kab", Oj, Hjj)
-    cross = torch.einsum("ek,el,eab->kalb", Oi, Oj, Hij)       # at (i, j)
+    # the (i, j) blocks: Oi^T (Oj x Hij) as one matmul per chunk of edges, the
+    # chunks summed in order; a pose graph has K + K^2 + L edges, and a
+    # three-operand einsum may form the (E, K, K) product of the one-hots
+    cross = None
+    for s in range(0, Oi.shape[0], _EDGE_CHUNK):
+        Z = Oj[s:s + _EDGE_CHUNK, :, None] * Hij[s:s + _EDGE_CHUNK].reshape(-1, 1, 36)
+        part = Oi[s:s + _EDGE_CHUNK].T @ Z.reshape(Z.shape[0], K * 36)
+        cross = part if cross is None else cross + part
+    cross = cross.reshape(K, K, 6, 6).permute(0, 2, 1, 3)      # (k, a, l, b)
     Hcc = cross + cross.permute(2, 3, 0, 1) + _block_diag(diag)
     bc = torch.einsum("ek,ei->ki", Oi, bi) + torch.einsum("ek,ei->ki", Oj, bj)
     return Hcc, bc
@@ -191,11 +202,13 @@ def _chi2_total(chi2_f, wf_act, chi2_b, wb_act, huber_delta, use_huber: bool):
 
 
 def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBlocks,
-                  bird: PointBlocks, odom: OdomEdges) -> BAResult:
+                  bird: PointBlocks, odom: OdomEdges, n_iters_1: int | None = None,
+                  n_iters_2: int | None = None) -> BAResult:
     """Two LM stages like the reference's local BA (``Optimizer.cc:2511-2572``):
-    ``local_ba_iters_1`` robust iterations, the outlier re-gate (chi2 above
-    5.991 or negative depth), ``local_ba_iters_2`` iterations without the
-    robust kernel, then the final classification (``:2574-2610``).  A step is
+    ``n_iters_1`` robust iterations (default ``local_ba_iters_1``), the outlier
+    re-gate (chi2 above 5.991 or negative depth), ``n_iters_2`` iterations
+    without the robust kernel (default ``local_ba_iters_2``), then the final
+    classification (``:2574-2610``).  A step is
     kept where the total chi2 drops; the damping halves on a kept step and
     quadruples otherwise.  Every decision is a device-side select."""
     K = poses0.shape[0]
@@ -213,6 +226,8 @@ def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBl
         return torch.einsum("pij,pj->pi", Hppi, bp - corr)
 
     def lm_stage(poses, fXw, bXw, f_act, b_act, n_iters, use_huber):
+        if n_iters == 0:
+            return poses, fXw, bXw
         f_actf, b_actf = f_act.to(torch.float32), b_act.to(torch.float32)
         lam = torch.full((), 1e-4, dtype=poses.dtype, device=poses.device)
         err = chi2_of(poses, fXw, bXw, f_actf, b_actf, use_huber)
@@ -247,10 +262,10 @@ def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBl
         return (f_act0 & (c2f <= ba.chi2_mono_ba * ba.w_front) & f_depth,
                 b_act0 & (c2b <= ba.chi2_bird * ba.w_bird))
 
-    poses, fXw, bXw = lm_stage(poses0, front.Xw, bird.Xw, f_act0, b_act0,
-                               ba.local_ba_iters_1, True)
+    it1 = ba.local_ba_iters_1 if n_iters_1 is None else n_iters_1
+    it2 = ba.local_ba_iters_2 if n_iters_2 is None else n_iters_2
+    poses, fXw, bXw = lm_stage(poses0, front.Xw, bird.Xw, f_act0, b_act0, it1, True)
     f_act1, b_act1 = classify(poses, fXw, bXw)
-    poses, fXw, bXw = lm_stage(poses, fXw, bXw, f_act1, b_act1,
-                               ba.local_ba_iters_2, False)
+    poses, fXw, bXw = lm_stage(poses, fXw, bXw, f_act1, b_act1, it2, False)
     f_in, b_in = classify(poses, fXw, bXw)
     return BAResult(poses, fXw, bXw, f_in, b_in)

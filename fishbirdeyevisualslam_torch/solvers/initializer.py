@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from fishbirdeyevisualslam_torch.config import CameraConfig
-from fishbirdeyevisualslam_torch.device import const
+from fishbirdeyevisualslam_torch.device import const, pick
 from fishbirdeyevisualslam_torch.geometry import se3
 from fishbirdeyevisualslam_torch.solvers import linalg
 from fishbirdeyevisualslam_torch.solvers.triangulate import triangulate
@@ -54,6 +54,13 @@ class GumbelDraws:
 
     def __init__(self, seed: int):
         self.generator = torch.Generator().manual_seed(seed)
+
+    def __getstate__(self):   # a Generator does not pickle; its state does
+        return {"state": self.generator.get_state()}
+
+    def __setstate__(self, d):
+        self.generator = torch.Generator()
+        self.generator.set_state(d["state"])
 
     def __call__(self, n: int, n_iters: int, n_points: int):
         tiny = torch.finfo(torch.float32).tiny
@@ -159,7 +166,7 @@ def ransac_fundamental(uv1, uv2, valid, gumbel, sigma: float = 1.0):
     uv2n, T2 = _normalize(uv2, valid)
     Fs = _unit_corner(T2.T @ _eight_point(uv1n[idx], uv2n[idx]) @ T1)
     scores, _ = _score_F(Fs, uv1, uv2, valid, sigma)
-    F = Fs[torch.argmax(scores)]
+    F = pick(Fs, torch.argmax(scores))
     score, inliers = _score_F(F, uv1, uv2, valid, sigma)
     A_all = _design_F(uv1n, uv2n)
     for _ in range(2):
@@ -213,7 +220,7 @@ def ransac_homography(uv1, uv2, valid, gumbel, sigma: float = 1.0):
     uv2n, T2 = _normalize(uv2, valid)
     Hs = _unit_corner(linalg.inv3(T2) @ _dlt_homography(uv1n[idx], uv2n[idx]) @ T1)
     scores, _ = _score_H(Hs, uv1, uv2, valid, sigma)
-    H = Hs[torch.argmax(scores)]
+    H = pick(Hs, torch.argmax(scores))
     score, inliers = _score_H(H, uv1, uv2, valid, sigma)
     return H, score, inliers
 
@@ -344,7 +351,7 @@ def initialize(cam: CameraConfig, uv1, uv2, valid, T21_odom, gumbel, loose_coupl
     best = torch.where(use_h, 4 + best_h, best_f)
     T21s = _T(torch.cat([Rf, Rh]), torch.cat([tf, th]))
     ok = torch.where(use_h, ok_h, ok_f)
-    return InitResult(ok, T21s[best], tri.Xw[best], masks[best] & ok,
+    return InitResult(ok, pick(T21s, best), pick(tri.Xw, best), pick(masks, best) & ok,
                       torch.where(use_h, counts_h[best_h], max_f), use_h)
 
 
@@ -362,5 +369,5 @@ def reinitialize(cam: CameraConfig, uv1, uv2, valid, T21_odom, gumbel, sigma: fl
     counts, masks, tri = _census(cam, Rs, ts, uv1, uv2, inliers.expand(2, -1), sigma * sigma)
     ok, max_good = _unique_best(counts, torch.sum(inliers.to(torch.int32)), min_triangulated)
     best = torch.argmax(counts)
-    return InitResult(ok, _T(Rs, ts)[best], tri.Xw[best], masks[best] & ok, max_good,
-                      torch.zeros((), dtype=torch.bool, device=uv1.device))
+    return InitResult(ok, pick(_T(Rs, ts), best), pick(tri.Xw, best), pick(masks, best) & ok,
+                      max_good, torch.zeros((), dtype=torch.bool, device=uv1.device))

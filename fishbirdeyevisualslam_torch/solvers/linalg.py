@@ -78,3 +78,28 @@ def inv3(A):
 def solve3(A, b):
     """Batched 3x3 solve through ``inv3``."""
     return torch.einsum("...ij,...j->...i", inv3(A), b)
+
+
+def spd_solve(A, b):
+    """Batched solve of small symmetric positive-definite systems A x = b
+    (..., n, n), (..., n): an unrolled Cholesky (diagonal clamped at 1e-30
+    before the square root) with forward and back substitution, a few batched
+    ops per column — ``torch.linalg.solve`` on the card may factor a batch of
+    small matrices one at a time."""
+    n = A.shape[-1]
+    L = torch.zeros_like(A)
+    for j in range(n):
+        s = A[..., j:, j] - torch.einsum("...ik,...k->...i", L[..., j:, :j], L[..., j, :j])
+        d = torch.sqrt(torch.clamp(s[..., 0], min=1e-30))
+        L = L.clone()
+        L[..., j, j] = d
+        L[..., j + 1:, j] = s[..., 1:] / d[..., None]
+    y = []
+    for i in range(n):  # L y = b
+        acc = b[..., i] - sum(L[..., i, k] * y[k] for k in range(i)) if i else b[..., i]
+        y.append(acc / L[..., i, i])
+    x = [None] * n
+    for i in reversed(range(n)):  # L^T x = y
+        acc = y[i] - sum(L[..., k, i] * x[k] for k in range(i + 1, n)) if i < n - 1 else y[i]
+        x[i] = acc / L[..., i, i]
+    return torch.stack(x, dim=-1)

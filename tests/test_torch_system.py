@@ -1,7 +1,8 @@
 """The port's ``SlamSystem`` against the JAX package's, on the CPU: the first
 three frames of a rendered arc drive at 0.5 m per frame (a reference frame,
 the frame that initializes, and a tracked frame that inserts a keyframe and
-runs ``local_mapping_step``), loop closing off on both.
+runs ``local_mapping_step``), loop closing off on the JAX facade and on by
+default on the port's (its detection finds no loop in three frames).
 
 Capacity: the mapping tests' K=16, P=1024, PB=512, with F=FB=512 keypoints
 and an initialization budget of 1024 (the facade doubles the front budget
@@ -225,20 +226,30 @@ def _frame(ref, i, blank=False):
 @pytest.mark.parametrize("case", ["async mapping", "loop closing", "fallback under 10 matches",
                                   "lost"])
 def test_branches_outside_the_port_raise(ref, case):
+    """Asynchronous mapping still raises, naming its ROADMAP item; loop
+    closing (on by default, as in the JAX package), the fallback under 10
+    motion-model matches and the LOST state are ported and run."""
     if case == "async mapping":
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             SlamSystem(SCFG, async_mapping=True, device="cpu")
         return
     sys_ = copy.deepcopy(ref["after_init"])
+    sys_.draws = JaxDraws(1)
     odom = ref["odom"][2]
-    if case == "loop closing":   # frame 2 inserts a keyframe
-        sys_.enable_loop_closing = True
-        with pytest.raises(NotImplementedError, match="item 5"):
-            _track(sys_, _frame(ref, 2), odom)
+    if case == "loop closing":   # frame 2 inserts a keyframe: detection runs, finds no loop
+        assert SlamSystem(SCFG, device="cpu").enable_loop_closing
+        _track(sys_, _frame(ref, 2), odom)
+        assert sys_.tracer.report()["loop_detect"]["count"] == 1
+        assert sys_.n_loops_closed == 0 and sys_.trajectory[-1].is_keyframe
     elif case == "fallback under 10 matches":
-        with pytest.raises(NotImplementedError, match="item 5"):
-            _track(sys_, _frame(ref, 2, blank=True), odom)
+        # nothing to match: the fallback finds nothing either, and a map of
+        # two keyframes is reset (Tracking.cc:731-740)
+        _track(sys_, _frame(ref, 2, blank=True), odom)
+        assert sys_.last_scalars[0] < 10
+        assert sys_.last_route == "reset" and sys_.map is None
+        assert sys_.state == tr.NOT_INITIALIZED
     else:
         sys_.state = tr.LOST
-        with pytest.raises(NotImplementedError, match="items 5 and 6"):
-            _track(sys_, _frame(ref, 2), odom)
+        _track(sys_, _frame(ref, 2), odom)
+        assert sys_.n_lost_frames == 1
+        assert sys_.last_route in ("relocalized", "reinitialized") and sys_.state == tr.OK

@@ -431,3 +431,94 @@ def ba_problem(K=6, P=120, PB=40, M=4, seed=0):
     poses0[0] = poses_true[0]
     return dict(poses_true=poses_true, poses0=poses0.astype(np.float32),
                 fixed=np.arange(K) == 0, front=front, bird=bird, odom=odom)
+
+
+def _vocab_leaves(rng, n):
+    """n distinct leaf centres of the vocabulary tree as packed descriptors:
+    descriptors that quantise stably (random bits quantise arbitrarily)."""
+    from fishbirdeyevisualslam_torch.ops import vocab
+    with np.load(vocab.VOCAB_PATH) as z:
+        leaves = z["centers_packed"][-vocab.N_WORDS:]
+    return leaves[rng.choice(vocab.N_WORDS, n, replace=False)].astype(np.uint32)
+
+
+def _words(m):
+    """``kf_words`` of every keyframe from its descriptors (the port's vocabulary descent)."""
+    from fishbirdeyevisualslam_torch.ops import vocab
+    Kn, Fn = m["kf_desc"].shape[:2]
+    pm1 = torch.from_numpy(_pm1(m["kf_desc"].reshape(-1, 8)))
+    m["kf_words"] = vocab.word_ids(pm1).numpy().reshape(Kn, Fn)
+
+
+LOOP_DRIFT = (0.0, 0.0, 0.03, 0.4, -0.25, 0.0)   # se3 (omega, upsilon) of the world drift
+
+
+def loop_scene():
+    """A loop: keyframes 0-3 (slots 0-3, insertion 0-3) at drive steps 0-3,
+    and after eleven insertions three keyframes (slots 4-6, insertion 15-17)
+    back at steps 1-3 whose poses and landmarks carry a world drift D (a
+    keyframe's pose is its true one composed with D, a landmark is D^-1 of
+    its world point), with odometry at the truth.  The two visits share no
+    landmark.  Slot 7 (insertion 14) is a keyframe of other descriptors
+    that shares three landmarks with each return keyframe, so that their
+    covisible neighbours' lowest BoW score is low.  World descriptors are
+    vocabulary leaves.  Keyframe 6 (the third return) leaves its feature
+    F-1 free on a world point that a landmark of the first visit holds:
+    fusing the loop into keyframe 6 writes ``kf_mp[6, F-1]``, the JAX
+    package's dump row (ROADMAP, queue 3).  Returns the map, D (7,), the
+    world id at keyframe 6's feature F-1 and the Frame fields of a query
+    frame back at step 2."""
+    sc = Scene(5)
+    sc.desc = _vocab_leaves(np.random.RandomState(50), len(sc.X))
+    D = t_se3.exp(torch.tensor(LOOP_DRIFT, dtype=torch.float32))
+    Dinv = t_se3.inverse(D)
+    out_slots, wids, bids = [0, 1, 2, 3], [], []
+    for s in out_slots:
+        _, wid, bid = sc.add_keyframe(s, s, is_init=s == 0)
+        wids.append(wid)
+        bids.append(bid)
+    pt_of, bpt_of = _landmarks(sc, out_slots, wids, bids, 300, 150)
+    # a world point of the first visit, held by a landmark, seen at step 3
+    uv3, pc3 = _project(_Tcw(sc.odom(3)), sc.X)
+    w_free = next(w for w in sorted(pt_of) if pc3[w, 2] > 8 and 20 < uv3[w, 0] < 930
+                  and 20 < uv3[w, 1] < 380)
+    m = sc.m
+    n_mp, n_bp = len(pt_of), len(bpt_of)
+    # the keyframe of other descriptors (slot 7, insertion 14)
+    m["kf_counter"] = np.int32(14)
+    sc.add_keyframe(7, 9)
+    m["kf_desc"][7] = np.where(m["kf_kp_valid"][7][:, None],
+                               _vocab_leaves(np.random.RandomState(51), F), 0)
+    ret_slots, rwids, rbids = [4, 5, 6], [], []
+    for s, i in zip(ret_slots, (1, 2, 3)):
+        force = ((F - 1, w_free),) if s == 6 else ()
+        _, wid, bid = sc.add_keyframe(s, i, force=force)
+        m["kf_Tcw"][s] = t_se3.compose(torch.from_numpy(m["kf_Tcw"][s]), D).numpy()
+        rwids.append(wid)
+        rbids.append(bid)
+    # the return visit's own landmarks, in the drifted world
+    seen = sorted({int(w) for wid in rwids for w in wid if w >= 0})[:300]
+    for k, w in enumerate(seen):
+        pt = n_mp + k
+        sc.register(pt, w, ret_slots)
+        m["mp_pos"][pt] = t_se3.transform(Dinv, torch.from_numpy(m["mp_pos"][pt])).numpy()
+    m["kf_mp"][6, F - 1] = -1
+    for pt in range(n_mp, n_mp + len(seen)):
+        drop = (m["obs_kf"][pt] == 6) & (m["obs_feat"][pt] == F - 1)
+        m["obs_valid"][pt] &= ~drop
+    bseen = sorted({int(g) for bid in rbids for g in bid if g >= 0})[:150]
+    for k, g in enumerate(bseen):
+        obs = [(s, int(np.nonzero(bid == g)[0][0])) for s, bid in zip(ret_slots, rbids)
+               if g in bid]
+        pt = n_bp + k
+        sc.register_bird(pt, g, [s for s, _ in obs], [f for _, f in obs])
+        m["bp_pos"][pt] = t_se3.transform(Dinv, torch.from_numpy(m["bp_pos"][pt])).numpy()
+    # three return landmarks also seen by keyframe 7 (its features 0-2)
+    for f in range(3):
+        pt = n_mp + f
+        n = int(m["obs_valid"][pt].sum())
+        m["obs_kf"][pt, n], m["obs_feat"][pt, n], m["obs_valid"][pt, n] = 7, f, True
+        m["kf_mp"][7, f] = pt
+    _words(m)
+    query = sc.features(2)[0]   # a frame back at step 2, the relocalization's query
+    return dict(m=sc.finish(), D=D.numpy(), w_free=w_free, query=query)
