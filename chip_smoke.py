@@ -20,7 +20,9 @@ Phases, each printing its lines:
      projection matchers; the fused pose optimisation on a stream frame's own
      inputs and on a synthetic problem, timed at (rounds, iters) = (1, 0),
      (1, 10) and (4, 10); the packed Hamming matrix and masked match at
-     scripts/bench_matcher.py's shapes;
+     scripts/bench_matcher.py's shapes, the masked match also with every
+     target in one 100 px square, each launch's own time printed beside
+     two bounds (the window test on every pair, and what the inputs need);
   3. the per-frame slice (build_frame + track_frame_core) at full width
      with the default SystemConfig, a 32-frame stream (each frame under fresh
      sensor noise, the map and the last frame carried over), with each
@@ -307,14 +309,19 @@ def phase_kernels(torch, cfg, dev):
     if not torch.equal(cuda_patch.extract_patches(atlas4, yx4, side),
                        cuda_patch.extract_patches_plain(atlas4, yx4, side)):
         fail("patch gather differs from its plain version at the init budget")
-    ms4 = time_ms(torch, lambda: cuda_patch.extract_patches(atlas4, yx4, side))
-    plain4 = time_ms(torch, lambda: cuda_patch.extract_patches_plain(atlas4, yx4, side))
+    init = dict(n=yx4.shape[0],
+                plain_ms=time_ms(torch, lambda: cuda_patch.extract_patches_plain(atlas4, yx4,
+                                                                                 side)))
+    timed(init, "extract_patches at the init budget",
+          lambda: cuda_patch.extract_patches(atlas4, yx4, side))
     read4 = window_pixels(torch, atlas4, yx4, side)
-    b4, b4_by = bound(read4 * 4 + yx4.numel() * 4 + yx4.shape[0] * side * side * 4, 0, PEAK_F32)
-    rows["patch"]["init_budget"] = dict(n=yx4.shape[0], ms=ms4, plain_ms=plain4, bound_ms=b4)
+    init["bound_ms"], b4_by = bound(read4 * 4 + yx4.numel() * 4 + yx4.shape[0] * side * side * 4,
+                                    0, PEAK_F32)
+    rows["patch"]["init_budget"] = init
     print(f"[kernel] patch gather at the init budget: N={yx4.shape[0]} side={side}, exact, "
-          f"{ms4:.4f} ms (plain {plain4:.4f} ms, bound {b4:.4f} ms by {b4_by}; {read4} distinct "
-          f"atlas px read)", flush=True)
+          f"graph {init['ms']:.4f} ms, kernel's own {init['kernel_ms']:.4f} ms (plain "
+          f"{init['plain_ms']:.4f} ms, bound {init['bound_ms']:.4f} ms by {b4_by}; {read4} "
+          f"distinct atlas px read)", flush=True)
 
     # projection matchers: a real frame's 2048 descriptors against 4096 targets,
     # half of them the frame's own descriptors with a few bits flipped
@@ -411,7 +418,8 @@ def phase_pose_and_hamming(torch, cfg, dev, st):
     """Kernel 5 (the fused pose optimisation) against its plain version on a
     frame's real associations from the stream and on a synthetic problem with
     outliers, prior off and on; kernels 6 and 7 (packed Hamming) against
-    theirs at scripts/bench_matcher.py's shapes, exactly."""
+    theirs at scripts/bench_matcher.py's shapes, exactly, and kernel 7 also
+    on clustered targets."""
     from fishbirdeyevisualslam_torch.geometry import se3
     from fishbirdeyevisualslam_torch.ops import cuda_matcher, matcher
     from fishbirdeyevisualslam_torch.slam.frame import desc_pm1_from_packed
@@ -503,7 +511,7 @@ def phase_pose_and_hamming(torch, cfg, dev, st):
     uvb = torch.from_numpy(rng.uniform(0, 900, (nb, 2)).astype(np.float32)).to(dev)
     vb = torch.ones(nb, dtype=torch.bool, device=dev)
     # forced ties: query q's own descriptor at its position in three columns,
-    # across the kernel's target tiles and splits
+    # across the kernel's slots, items and chunks
     ties = ((0, (300, 700, nb // 2 + 8)), (1, (5, 6)), (2, (nb - 1, nb // 4 + 1)))
     for q, cols in ties:
         for c in cols:
@@ -511,22 +519,28 @@ def phase_pose_and_hamming(torch, cfg, dev, st):
     if not torch.equal(cuda_matcher.hamming_matrix_packed(da, db),
                        cuda_matcher.hamming_matrix_packed_plain(da, db)):
         fail("hamming_matrix_packed differs from its plain version")
-    n_cand = 0
-    for label, valid in (("all valid", vb), ("no valid target", torch.zeros_like(vb))):
-        got = cuda_matcher.fused_masked_match(da, uva, db, uvb, valid, radius)
-        ref = cuda_matcher.fused_masked_match_plain(da, uva, db, uvb, valid, radius)
+    # the clustered problem: every target but the tie columns in one 100 px square
+    uvc = torch.from_numpy(np.random.RandomState(1).uniform(400, 500, (nb, 2))
+                           .astype(np.float32)).to(dev)
+    tie_cols = torch.tensor([c for _, cols in ties for c in cols], device=dev)
+    uvc[tie_cols] = uvb[tie_cols]
+    n_cand = {}
+    for label, uvt, valid in (("uniform", uvb, vb), ("clustered", uvc, vb),
+                              ("uniform, no valid target", uvb, torch.zeros_like(vb))):
+        got = cuda_matcher.fused_masked_match(da, uva, db, uvt, valid, radius)
+        ref = cuda_matcher.fused_masked_match_plain(da, uva, db, uvt, valid, radius)
         if not all(torch.equal(x, y) for x, y in zip(got, ref)):
             fail(f"fused_masked_match ({label}) differs from its plain version")
-        if label == "all valid":
-            if got[2][:3].tolist() != [min(c) for _, c in ties] \
-                    or got[1][:3].tolist() != [0.0] * 3:
-                fail(f"fused_masked_match broke a tie wrongly: {got[2][:3].tolist()}")
-            n_cand = int(matcher.window_mask(uva, uvb, radius).sum())
-        elif int((got[2] != -1).sum()):
-            fail("fused_masked_match matched with no valid target")
+        if "no valid" in label:
+            if int((got[2] != -1).sum()):
+                fail("fused_masked_match matched with no valid target")
+            continue
+        if got[2][:3].tolist() != [min(c) for _, c in ties] or got[1][:3].tolist() != [0.0] * 3:
+            fail(f"fused_masked_match ({label}) broke a tie wrongly: {got[2][:3].tolist()}")
+        n_cand[label] = int((matcher.window_mask(uva, uvt, radius) & valid[None, :]).sum())
     print(f"[kernel] packed Hamming: {na}x{nb}, radius {radius}: matrix exact; masked match "
-          f"exact (best, second, idx), ties to the lowest column, no-valid-target case all -1; "
-          f"{n_cand} pairs pass the window", flush=True)
+          f"exact (best, second, idx) uniform and clustered, ties to the lowest column, "
+          f"no-valid-target case all -1; pairs in the window: {n_cand}", flush=True)
     pa, pb = desc_pm1_from_packed(da), desc_pm1_from_packed(db)
     b_ms, b_by = bound((na + nb) * 32 + na * nb * 4, na * nb * 8 * 3, PEAK_F32)
     rows["hamming"] = dict(
@@ -540,22 +554,34 @@ def phase_pose_and_hamming(torch, cfg, dev, st):
     print(f"[kernel] hamming_matrix_packed: {rows['hamming']['ms']:.4f} ms (plain "
           f"{rows['hamming']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; +/-1 bf16 "
           f"matmul yardstick {rows['hamming']['library_ms']:.4f} ms)", flush=True)
-    # window test on every pair (~6 ops), XOR + popcount + add on the 8 words
-    # of each pair that passes, and the running top-2 update (~4 ops)
-    ops = na * nb * 6 + n_cand * (8 * 3 + 4)
+    # two bounds: the dense one (the window test on every pair, ~6 ops, what
+    # a kernel without binning must do) and what these inputs need (XOR +
+    # popcount + add on the 8 words of each pair that passes and the top-2
+    # update, ~4 ops; each input byte read once and each output byte written
+    # once)
     nbytes = na * (32 + 8) + nb * (32 + 8 + 1) + na * 12
-    b_ms, b_by = bound(nbytes, ops, PEAK_F32)
-    rows["masked_match"] = dict(
-        name="fused_masked_match", source="fishbirdeyevisualslam_torch/csrc/hamming.cu",
-        replaces="fishbirdeyevisualslam_tpu/ops/pallas_matcher.py:130", max_abs_err=0.0,
-        plain_ms=time_ms(torch, lambda: cuda_matcher.fused_masked_match_plain(
-            da, uva, db, uvb, vb, radius)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    timed(rows["masked_match"], "fused_masked_match",
-          lambda: cuda_matcher.fused_masked_match(da, uva, db, uvb, vb, radius))
-    print(f"[kernel] fused_masked_match: {rows['masked_match']['ms']:.4f} ms (plain "
-          f"{rows['masked_match']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; ops "
-          f"{ops}, bytes {nbytes})", flush=True)
+    for label, uvt in (("uniform", uvb), ("clustered", uvc)):
+        need_ops = n_cand[label] * (8 * 3 + 4)
+        dense_ms, dense_by = bound(nbytes, na * nb * 6 + need_ops, PEAK_F32)
+        need_ms, need_by = bound(nbytes, need_ops, PEAK_F32)
+        row = dict(
+            name="fused_masked_match", source="fishbirdeyevisualslam_torch/csrc/hamming.cu",
+            replaces="fishbirdeyevisualslam_tpu/ops/pallas_matcher.py:130", max_abs_err=0.0,
+            plain_ms=time_ms(torch, lambda: cuda_matcher.fused_masked_match_plain(
+                da, uva, db, uvt, vb, radius)),
+            bound_ms=need_ms, bound_by=need_by, dense_bound_ms=dense_ms, library_ms=None)
+        timed(row, f"fused_masked_match, {label}",
+              lambda: cuda_matcher.fused_masked_match(da, uva, db, uvt, vb, radius))
+        print(f"[kernel] fused_masked_match, {label}: graph {row['ms']:.4f} ms, kernels' own "
+              f"{row['kernel_ms']:.4f} ms (plain {row['plain_ms']:.4f} ms); dense bound "
+              f"{dense_ms:.5f} ms by {dense_by} ({dense_ms / row['kernel_ms']:.1%} of own), "
+              f"needed bound {need_ms:.5f} ms by {need_by} ({need_ms / row['kernel_ms']:.1%} "
+              f"of own); {n_cand[label]} pairs pass, ops {need_ops}, bytes {nbytes}",
+              flush=True)
+        if label == "uniform":
+            rows["masked_match"] = row
+        else:
+            rows["masked_match"]["clustered"] = row
     return rows
 
 
@@ -1876,7 +1902,8 @@ def main() -> int:
         row = dict(rows[key], route="cuda", launches=launches.get(fn_name, 0))
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "kernel_ms", "plain_ms",
-                                            "bound_ms", "bound_by", "library_ms")})
+                                            "bound_ms", "bound_by", "dense_bound_ms",
+                                            "library_ms") if k in row})
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(json.dumps({"kernels": kernels}))

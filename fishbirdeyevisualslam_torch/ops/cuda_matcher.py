@@ -191,8 +191,13 @@ fused_projection_match_dual.launches = 0
 # packed Hamming kernels (csrc/hamming.cu): descriptor words held as int32 bit
 # patterns, as convert.py holds them
 
-MATCH_QUERIES_PER_BLOCK = 128  # csrc/hamming.cu: M_THREADS
-MATCH_TILE = 256               # csrc/hamming.cu: M_TILE
+# masked match (csrc/hamming.cu: mm_bin + mm_match): the targets are binned into
+# square cells of side s = max(r * (1 + CELL_MARGIN), MIN_CELL) and hashed
+# into a table of 4**lg slots (cell coordinates mod 2**lg), about
+# TARGETS_PER_SLOT targets a slot, lg in [2, 6] (csrc/hamming.cu: MAX_LG)
+CELL_MARGIN = 1.0 / 32
+MIN_CELL = 1.0  # px
+TARGETS_PER_SLOT = 16
 _POPCOUNT8 = tuple(bin(i).count("1") for i in range(256))
 
 
@@ -263,9 +268,32 @@ def hamming_matrix_packed(desc_a, desc_b):
     return out
 
 
+def masked_cell_scale(radius) -> float:
+    """The f32 1/s of the masked match's cells for a window ``radius`` (as
+    the kernel rounds it to f32): 0 for an infinite radius (one cell), 1/MIN_CELL
+    for a radius that is not positive or NaN.  Every pair within the window
+    lies in neighbouring cells (``tests/test_torch_hamming.py`` holds a float32
+    twin of the kernel's cell function to it)."""
+    r = torch.tensor(float(radius), dtype=torch.float32).item()
+    side = max(r * (1.0 + CELL_MARGIN), MIN_CELL) if r > 0 else MIN_CELL
+    return torch.tensor(1.0 / side, dtype=torch.float32).item()
+
+
+def masked_table_log2(nb: int) -> int:
+    """log2 of the masked match's table side: the least lg in [2, 6] with
+    about TARGETS_PER_SLOT targets or fewer in each of its 4**lg slots."""
+    lg = 2
+    while lg < 6 and TARGETS_PER_SLOT << (2 * lg) < nb:
+        lg += 1
+    return lg
+
+
 def _masked_launch(desc_a, uv_a, desc_b, uv_b, valid_b, radius: float):
     dev = desc_a.device
     _check_words("fused_masked_match", dev, desc_a=desc_a, desc_b=desc_b)
+    for name, t in (("desc_a", desc_a), ("desc_b", desc_b)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_masked_match: {name} must be 16-byte aligned")
     na, nb = desc_a.shape[0], desc_b.shape[0]
     for name, t, shape, dtype in (("uv_a", uv_a, (na, 2), torch.float32),
                                   ("uv_b", uv_b, (nb, 2), torch.float32),
@@ -276,24 +304,25 @@ def _masked_launch(desc_a, uv_a, desc_b, uv_b, valid_b, radius: float):
                              f"of shape {shape} on {dev}")
     if nb > 1 << 20:
         raise ValueError(f"fused_masked_match: at most {1 << 20} targets, got {nb}")
-    n_tiles = -(-nb // MATCH_TILE)
-    row_blocks = -(-max(na, 1) // MATCH_QUERIES_PER_BLOCK)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(n_tiles, -(-4 * sms // row_blocks)))
-    part1 = torch.empty((splits, na), dtype=torch.int32, device=dev)
-    part2 = torch.empty((splits, na), dtype=torch.int32, device=dev)
+    lib = _cuda.load("hamming")
+    vp, ci, cf, cz = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+    lib.masked_match_scratch.argtypes = [ci, ci, ci]
+    lib.masked_match_scratch.restype = cz
+    lg = masked_table_log2(nb)
+    n_scratch = lib.masked_match_scratch(na, nb, lg)
+    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev)
     best = torch.empty((na,), dtype=torch.float32, device=dev)
     second = torch.empty((na,), dtype=torch.float32, device=dev)
     idx = torch.empty((na,), dtype=torch.int32, device=dev)
-    fn = _cuda.load("hamming").masked_match
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, ci, vp, vp, vp, ci, ctypes.c_float, ci, vp, vp, vp, vp, vp, vp]
+    fn = lib.masked_match
+    fn.argtypes = [vp, vp, ci, vp, vp, vp, ci, cf, cf, ci, vp, cz, vp, vp, vp, vp]
     fn.restype = ci
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(desc_a.data_ptr(), uv_a.data_ptr(), na, desc_b.data_ptr(), uv_b.data_ptr(),
-                 valid_b.data_ptr(), nb, float(radius), splits, part1.data_ptr(),
-                 part2.data_ptr(), best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream)
+                 valid_b.data_ptr(), nb, float(radius), masked_cell_scale(radius), lg,
+                 scratch.data_ptr(), n_scratch, best.data_ptr(), second.data_ptr(),
+                 idx.data_ptr(), stream)
     _cuda.check(err, "masked_match")
     return best, second, idx
 

@@ -351,23 +351,87 @@ def test_hamming_matrix_packed(dev, na, nb):
     assert torch.equal(got, cuda_matcher.hamming_matrix_packed_plain(a, b))
 
 
+def _masked_case(rng, case, a, uva, b, uvb, vb, radius):
+    """Edits a random problem into one edge case of the masked match's design
+    (targets binned into cells of side s > radius, 3 x 3 cells searched per
+    query, the targets of a neighbourhood cut into chunks)."""
+    na, nb = len(a), len(b)
+    if case == "ties":   # three equal targets for query 0, two for query 1
+        for q, cols in ((0, (300, 700, 1099)), (1, (5, 6))):
+            b[list(cols)], uvb[list(cols)], vb[list(cols)] = a[q], uva[q], True
+    if case == "ties in several cells":   # equal distances near each of 40 queries
+        for q in range(0, 120, 3):
+            cols = rng.choice(nb, 3, replace=False)
+            b[cols], vb[cols] = a[q] ^ (1 << (q % 31)), True
+            uvb[cols] = uva[q] + rng.uniform(-radius, radius, (3, 2)).astype(np.float32)
+    if case == "no valid":
+        vb[:] = False
+    if case == "all valid":
+        vb[:] = True
+    if case == "window edges":   # at u_q +- r and v_q +- r exactly, and one ulp outside
+        rf, k = np.float32(radius), 0
+        for q in range(40):
+            for du, dv in ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, -1)):
+                for out in (False, True):
+                    u = np.float32(uva[q, 0] + np.float32(du) * rf)
+                    v = np.float32(uva[q, 1] + np.float32(dv) * rf)
+                    if out:
+                        u = np.nextafter(u, np.float32(du * np.inf)) if du else u
+                        v = np.nextafter(v, np.float32(dv * np.inf)) if dv else v
+                    uvb[k], vb[k], b[k] = (u, v), True, a[q] ^ (1 << (k % 7))
+                    k += 1
+    if case == "cell edges":   # on the cells' edges and one ulp either side of them
+        side = np.float32(1.0) / np.float32(cuda_matcher.masked_cell_scale(radius))
+        for arr in (uva, uvb):
+            e = (rng.randint(0, 7, arr.shape).astype(np.float32) * side).astype(np.float32)
+            shift = rng.randint(-1, 2, arr.shape)
+            e = np.where(shift > 0, np.nextafter(e, np.float32(np.inf)), e)
+            arr[:] = np.where(shift < 0, np.nextafter(e, np.float32(-np.inf)), e)
+    if case == "r = 0, coincident":
+        uvb[: nb // 2] = uva[rng.randint(0, na, nb // 2)]
+        uvb[nb // 2:] = np.round(uvb[nb // 2:])
+        uva[: na // 2] = np.round(uva[: na // 2])
+    if case == "one cell":
+        uva[:] = rng.rand(na, 2) * 10 + 3
+        uvb[:] = rng.rand(nb, 2) * 10 + 3
+    if case == "nan, inf, 1e6":
+        vals = np.array([np.nan, np.inf, -np.inf, 1e6, -1e6, 3e38, 0.0, -0.0], np.float32)
+        for arr in (uva, uvb):
+            m = rng.rand(*arr.shape) < 0.3
+            arr[m] = vals[rng.randint(0, len(vals), m.sum())]
+        uvb[:20], vb[:20] = uva[:20], True
+    if case == "clustered":   # every target in one square of two radii
+        uvb[:] = rng.rand(nb, 2) * 2 * radius + 150
+
+
 @pytest.mark.parametrize("na,nb,radius,case", [
     (200, 600, 60.0, "random"), (129, 1100, 60.0, "ties"), (20, 20, 50.0, "no valid"),
-    (300, 5000, 1e4, "every pair")])
+    (300, 5000, 1e4, "every pair"), (200, 600, 37.3, "window edges"),
+    (200, 700, 40.0, "cell edges"), (200, 600, 0.0, "r = 0, coincident"),
+    (300, 3000, 50.0, "one cell"), (200, 600, 60.0, "nan, inf, 1e6"),
+    (200, 600, float("inf"), "nan, inf, 1e6"), (200, 600, float("nan"), "random"),
+    (1, 333, 60.0, "random"), (50, 1, 60.0, "all valid"), (1, 1, 1e4, "all valid"),
+    (257, 2049, 60.0, "random"), (300, 2500, 50.0, "clustered"),
+    (300, 1600, 60.0, "ties in several cells"), (64, 1 << 20, 50.0, "random")])
 def test_fused_masked_match(dev, na, nb, radius, case):
+    """Exactly the plain version (best, second, idx), one launch counted per
+    call, and no host read in the call."""
     rng = np.random.RandomState(na + nb)
     a, b = _words(rng, na), _words(rng, nb)
     uva = rng.rand(na, 2).astype(np.float32) * 400
     uvb = rng.rand(nb, 2).astype(np.float32) * 400
     vb = rng.rand(nb) > 0.2
-    if case == "ties":   # across the kernel's 256-column tiles and inside one
-        for q, cols in ((0, (300, 700, 1099)), (1, (5, 6))):
-            b[list(cols)], uvb[list(cols)], vb[list(cols)] = a[q], uva[q], True
-    if case == "no valid":
-        vb[:] = False
+    _masked_case(rng, case, a, uva, b, uvb, vb, radius)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     args = (t(a), t(uva), t(b), t(uvb), t(vb), radius)
-    got = cuda_matcher.fused_masked_match(*args)
+    n0 = cuda_matcher.fused_masked_match.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cuda_matcher.fused_masked_match(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_matcher.fused_masked_match.launches == n0 + 1
     ref = cuda_matcher.fused_masked_match_plain(*args)
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
@@ -375,6 +439,8 @@ def test_fused_masked_match(dev, na, nb, radius, case):
         assert got[2][:2].tolist() == [300, 5] and got[1][:2].tolist() == [0.0, 0.0]
     if case == "no valid":
         assert (got[2] == -1).all() and (got[0] == 1e9).all()
+    if case in ("window edges", "ties in several cells"):
+        assert int((got[2] >= 0).sum()) > 0   # the case exercises matches at all
 
 
 # ---------------------------------------------------------------------------

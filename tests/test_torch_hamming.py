@@ -108,3 +108,56 @@ def test_fused_masked_match_matches_jax(jax_refs, case):
         assert got[2][2] != 300
     if case == "no valid target":
         assert (got[2] == -1).all() and (got[0] == 1e9).all() and (got[1] == 1e9).all()
+
+
+# the masked match's cells (csrc/hamming.cu: cell; ops/cuda_matcher.py picks
+# their side): torch and numpy only, no JAX reference
+
+
+def _cell(u, inv_s):
+    """float32 twin of csrc/hamming.cu:cell: floor(u / s) from the f32 1/s,
+    positions clamped to +-1e30 (NaN to -1e30) and cells to +-32768."""
+    x = np.fmin(np.fmax(np.asarray(u, np.float32), np.float32(-1e30)), np.float32(1e30))
+    q = np.fmin(np.fmax(x * np.float32(inv_s), np.float32(-32768)), np.float32(32768))
+    return np.floor(q).astype(np.int64)
+
+
+@pytest.mark.parametrize("radius", [0.0, -1.0, float("nan"), 1e-3, 0.5, 1.0, 37.3, 50.0, 60.0,
+                                    1e4, 3e38, float("inf")])
+def test_masked_match_cells_hold_every_window(radius):
+    """Every pair that passes the f32 window test |u1 - u2| <= r lies in
+    neighbouring cells for the side the wrapper picks, so a query's 3 x 3
+    cells hold every target it can match: uniform draws at several scales,
+    the cells' edges and one or two ulps either side, the clamp's edge,
+    infinities and NaN, each against partners at exactly +-r, one ulp inside
+    and outside, and uniform within the window."""
+    inv = cuda_matcher.masked_cell_scale(radius)
+    rf = np.float32(radius)
+    side = np.float32(1.0 / inv) if inv > 0 else np.float32(1e6)
+    rng = np.random.RandomState(0)
+    with np.errstate(over="ignore"):
+        edges = (np.arange(-60, 60, dtype=np.float32) * side).astype(np.float32)
+        edges = np.append(edges, np.float32([32767, 32768, 32769]) * side)
+        near = [edges, np.nextafter(edges, np.float32(np.inf)),
+                np.nextafter(edges, np.float32(-np.inf))]
+        near += [np.nextafter(near[1], np.float32(np.inf)),
+                 np.nextafter(near[2], np.float32(-np.inf))]
+    u = np.concatenate(near + [rng.uniform(-1e3, 1e3, 3000), rng.uniform(-2e6, 2e6, 3000),
+                               rng.uniform(-10, 10, 2000),
+                               np.array([0.0, -0.0, 1e6, -1e6, 3e38, np.inf, -np.inf, np.nan])]
+                       ).astype(np.float32)
+    r_fin = rf if np.isfinite(rf) and rf > 0 else np.float32(0.0)
+    steps = [np.float32(0.0), r_fin, -r_fin, np.nextafter(r_fin, np.float32(0)),
+             -np.nextafter(r_fin, np.float32(0)), np.nextafter(r_fin, np.float32(np.inf))]
+    with np.errstate(invalid="ignore", over="ignore"):
+        for d in steps + [rng.uniform(-1, 1, u.shape).astype(np.float32) * r_fin]:
+            u2 = (u + d).astype(np.float32)
+            ok = np.abs(u - u2) <= rf
+            far = np.abs(_cell(u, inv) - _cell(u2, inv)) > 1
+            assert not np.any(ok & far), (radius, u[ok & far][:5], u2[ok & far][:5])
+        if np.isinf(rf):   # every pair at a finite distance, infinities included
+            v = np.array([0.0, -5e3, 7e5, 3e38, -3e38, np.inf, -np.inf], np.float32)
+            ok = np.abs(v[:, None] - v[None, :]) <= rf
+            assert np.all(_cell(v, inv)[:, None] == _cell(v, inv)[None, :]) and ok.sum() > 40
+    assert 2 <= cuda_matcher.masked_table_log2(1) <= cuda_matcher.masked_table_log2(16384) == 5
+    assert cuda_matcher.masked_table_log2(1 << 20) == 6
