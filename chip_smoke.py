@@ -8,6 +8,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --facade-only   # build + phase 5 (the facade drive) only
     python3 chip_smoke.py --recovery-only # build + phase 6 (recovery) only
     python3 chip_smoke.py --loop-only     # build + phase 7 (loop closing) only
+    python3 chip_smoke.py --async-only    # build + phases 8 and 9 and the dataset check only
 
 Phases, each printing its lines:
   1. the card and the toolchain; the kernels built from
@@ -59,10 +60,26 @@ Phases, each printing its lines:
      the RANSAC and the projection gate, closed from its inputs with the vet
      off: twice on the card (bit-identical), once on the CPU with the same
      draws (the same candidate, poses within 1e-3, front points p99 <= 1.0
-     px), and its global BA and essential graph profiled.
-Then the kernel table as one JSON line (launches summed over the drives of
-phases 5-7), the card's name and power limit, and the device line.  Any
-failed check exits non-zero.  Needs no JAX.
+     px), and its global BA and essential graph profiled;
+  8. asynchronous mapping (SlamSystem(async_mapping=True): the native
+     pipeline's worker maps a snapshot on a CUDA stream of its own) over
+     phase 5's render: flushed after every frame, bit-identical to phase 5's
+     synchronous drive (map and trajectory); free-running, with each frame's
+     state, the jobs, journal, bird replay, frames tracked during a job,
+     host syncs by thread, kernel launches by stream, the tracking thread's
+     frame wall with and without a job in flight, and the ATE (bound 0.3 m);
+     synchronous and asynchronous frames/s over the first 20 frames,
+     alternated three times;
+  9. phase 5's facade saved after 15 frames (io/session.py), loaded and
+     driven to the end, against the uninterrupted drive (bound 1e-4); the arc
+     with fix_scale = False (ATE bound 0.3 m); phase 7's correction under
+     fix_scale = False (the Sim3 correct_loop), twice on the card
+     (bit-identical) and on the CPU (phase 7's bounds), its stages timed;
+     then phase 5's render exported as PGM and read back through the native
+     prefetcher, exact.
+Then the script's wall time, the kernel table as one JSON line (launches
+summed over the drives of phases 5-9), the card's name and power limit, and
+the device line.  Any failed check exits non-zero.  Needs no JAX.
 """
 
 from __future__ import annotations
@@ -72,6 +89,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -79,6 +97,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -89,6 +108,8 @@ import warnings
 os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
 
 import numpy as np  # noqa: E402
+
+T_START = time.perf_counter()
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM3 bandwidth
@@ -854,6 +875,7 @@ def phase_slice(torch, cfg, dev, st, profile: bool = False):
 
 
 N_MAP = 30          # frames of the facade drive (an arc, io/synthetic.py)
+N_RESUME = 15       # phase 9: the facade's session saved after this many frames
 N_BEFORE_RESET = 6  # the modes' drive (tests/test_system_modes.py): frames before reset(),
 N_RESET = 8         # frames after it (re-initialization, then tracking),
 N_LOCAL = 4         # frames in localization mode
@@ -887,15 +909,18 @@ def count_syncs(torch, dev, out: list, sites=None):
     detector does not see every synchronising operation.  ``sites`` (a
     ``collections.Counter``), where given, counts them by call site
     (``_sync_site``).  A block nested in another counts its own syncs, and
-    the outer block does not see them.  On the CPU, nothing to count."""
+    the outer block does not see them.  Only the calling thread's syncs
+    count (the mode is process-wide; the mapping worker's are phase 8's).
+    On the CPU, nothing to count."""
     if dev.type != "cuda":
         yield
         out.append(0)
         return
     n = [0]
+    me = threading.get_ident()
 
     def seen(message, *_args, **_kwargs):
-        if "synchroniz" in str(message):
+        if "synchroniz" in str(message) and threading.get_ident() == me:
             n[0] += 1
             if sites is not None:
                 sites[_sync_site()] += 1
@@ -964,11 +989,11 @@ def describe_diff(d: dict) -> str:
             f"likewise, their position difference p99 {d['b99']:.3g} m, max {d['bmax']:.3g} m")
 
 
-def mapping_step_diffs(torch, cfg, dev, m0, slot: int, n_nb: int):
+def mapping_step_diffs(torch, cfg, dev, m0, slot: int, n_nb: int, spread: bool = False):
     """One mapping step on ``m0`` for the keyframe at ``slot``, on ``dev``
-    and on the CPU with all its threads and with one: (``map_diff`` of the
-    card against the CPU, ``map_diff`` of one CPU thread against many, the
-    CPU step's seconds)."""
+    and on the CPU with all its threads and, with ``spread``, with one:
+    (``map_diff`` of the card against the CPU, ``map_diff`` of one CPU thread
+    against many or None, the CPU step's seconds)."""
     from fishbirdeyevisualslam_torch.device import to_device
     from fishbirdeyevisualslam_torch.slam import tracking as tr
     cpu = torch.device("cpu")
@@ -976,6 +1001,8 @@ def mapping_step_diffs(torch, cfg, dev, m0, slot: int, n_nb: int):
     t1 = time.perf_counter()
     ref = tr.local_mapping_step(to_device(m0, cpu), slot, cfg, n_nb, device=cpu)
     t_cpu = time.perf_counter() - t1
+    if not spread:
+        return map_diff(torch, cfg, got, ref, slot), None, t_cpu
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -1120,7 +1147,9 @@ def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
     budget).  With ``survey``, the mapping step of every fourth keyframe and
     of the last is held against the CPU instead (the readings behind that
     check's bound), and nothing after it runs.  ``snap`` receives a copy of
-    the facade after N_KIDNAP frames and the drive (phase 6's kidnap)."""
+    the facade after N_KIDNAP frames and the drive (phase 6's kidnap), the
+    facade after the drive and its session after N_RESUME frames (phases
+    8 and 9)."""
     import copy
     from fishbirdeyevisualslam_torch.geometry import se3
     from fishbirdeyevisualslam_torch.io import evaluate
@@ -1166,9 +1195,18 @@ def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
                 frame_syncs.append((i, sys_.trajectory[-1].is_keyframe, syncs[0]))
             if snap is not None and i == N_KIDNAP - 1:
                 snap.update(sys=copy.deepcopy(sys_), seq=seq)
+            if snap is not None and i == N_RESUME - 1:
+                resume = copy.deepcopy(sys_)
     _sync(torch, dev)
     dt = time.perf_counter() - t_drive
     launches = {c.__name__: c.launches for c in counters}
+    if snap is not None:
+        # phase 9's session, saved outside the timed drive
+        from fishbirdeyevisualslam_torch.io.session import save_session
+        buf = io.BytesIO()
+        save_session(resume, buf)
+        del resume
+        snap.update(sync=sys_, session=buf.getvalue())
     states = [e.state for e in sys_.trajectory]
     stages = sys_.tracer.report()
     n_init_frames = stages.get("initialize", {}).get("count", 0)
@@ -1247,7 +1285,7 @@ def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
         if not kept or kept[-1][0] != len(rows):
             kept.append((len(rows), captured["m"], captured["slot"]))
         for k, m, slot in kept:
-            d, spread, t_cpu = mapping_step_diffs(torch, cfg, dev, m, slot, n_nb)
+            d, spread, t_cpu = mapping_step_diffs(torch, cfg, dev, m, slot, n_nb, spread=True)
             for name, x in (("card vs CPU", d), ("one CPU thread vs many", spread)):
                 print(f"[survey] keyframe {k} (slot {slot}), {name}: {describe_diff(x)}",
                       flush=True)
@@ -1270,13 +1308,12 @@ def phase_facade(torch, cfg, dev, n_frames: int = N_MAP, profile: bool = False,
             fail(f"two card runs of local_mapping_step differ in {diff}")
         print(f"[facade] local_mapping_step on keyframe {len(rows)} (slot {slot}), run twice on "
               "the card: bit-identical in every field", flush=True)
-    d, spread, t_cpu = mapping_step_diffs(torch, cfg, dev, m0, slot, n_nb)
+    d, _, t_cpu = mapping_step_diffs(torch, cfg, dev, m0, slot, n_nb)
     print(f"[facade] keyframe {len(rows)}'s step on the CPU ({t_cpu:.1f} s), card vs CPU: "
           f"{describe_diff(d)} (bounds: keyframes equal, pose diff <= 1e-3, counts within "
           f"max(5, 1%), >= 0.98 of the points and of the bird points at the same slot, p99 <= "
-          f"{PX99_BOUND} px in the observing keyframes and <= 5e-3 m)", flush=True)
-    print(f"[facade] the same step on the CPU with one thread against {torch.get_num_threads()} "
-          f"threads (the f32 spread, not bounded): {describe_diff(spread)}", flush=True)
+          f"{PX99_BOUND} px in the observing keyframes and <= 5e-3 m; the f32 spread of one "
+          "CPU thread against many: --survey)", flush=True)
     c = d["counts"]
     if not (d["kf_same"] and d["dT"] <= 1e-3 and near(c[0], c[1]) and near(c[2], c[3])
             and near(c[4], c[5]) and d["share"] >= 0.98 and d["px99"] <= PX99_BOUND
@@ -1400,8 +1437,9 @@ def sync_timers(torch, dev, module, names, out: list, keep_args: bool = False,
     call's first argument) per call; ``summary`` (name -> function of the
     result) appends what it gives to the entry.  The timers' own
     synchronisations, and the summaries' host reads, are hidden from an
-    enclosing ``count_syncs``."""
+    enclosing ``count_syncs``.  Calls from other threads go through untimed."""
     saved = {n: getattr(module, n) for n in names}
+    me = threading.get_ident()
 
     def quiet_sync():
         with count_syncs(torch, dev, []):
@@ -1409,6 +1447,8 @@ def sync_timers(torch, dev, module, names, out: list, keep_args: bool = False,
 
     def timed(name, fn):
         def run(*args, **kwargs):
+            if threading.get_ident() != me:
+                return fn(*args, **kwargs)
             quiet_sync()
             t1 = time.perf_counter()
             r = fn(*args, **kwargs)
@@ -1435,11 +1475,15 @@ def loop_attempts(torch, dev, lc, out: list):
     ``out``: the keyframe and the candidate (slot, insertion, frame id), the
     RANSAC's inliers and success, the projected matches, the odometry vet's
     (disagreement, tolerance) m, and ``closed`` (set by the caller).  The
-    records' own host reads are hidden from an enclosing ``count_syncs``."""
+    records' own host reads are hidden from an enclosing ``count_syncs``.
+    Calls from other threads go through unrecorded."""
     transform0, verify0, vet0 = (lc.compute_loop_transform, lc.verify_loop_projection,
                                  lc.LoopCloser._odom_vet)
+    me = threading.get_ident()
 
     def transform(m, cur, cand, cfg_, gumbel):
+        if threading.get_ident() != me:
+            return transform0(m, cur, cand, cfg_, gumbel)
         S, n_in, ok = transform0(m, cur, cand, cfg_, gumbel)
         with count_syncs(torch, dev, []):
             seq, frame, cand_frame, n_in_h, ok_h = torch.stack(
@@ -1450,12 +1494,16 @@ def loop_attempts(torch, dev, lc, out: list):
         return S, n_in, ok
 
     def verify(m, cur, cand, T, cfg_):
+        if threading.get_ident() != me:
+            return verify0(m, cur, cand, T, cfg_)
         n = verify0(m, cur, cand, T, cfg_)
         with count_syncs(torch, dev, []):
             out[-1]["n_proj"] = int(n)
         return n
 
     def vet(self, m, cur, cand, T):
+        if threading.get_ident() != me:
+            return vet0(self, m, cur, cand, T)
         out[-1]["vet"] = vet0(self, m, cur, cand, T)
         return out[-1]["vet"]
 
@@ -1665,7 +1713,7 @@ LOOP_FNS = ("detect_loop_groups", "compute_loop_transform", "verify_loop_project
 JAX_RECT = "0 loops closed, ATE 0.1929 m, LOST on 51 57 66 76 89 98 115 139 147 155"
 
 
-def phase_loop(torch, cfg, dev, profile: bool = False):
+def phase_loop(torch, cfg, dev, profile: bool = False, keep: dict | None = None):
     """The facade over the 160-frame rectangle of ``tests/test_loop_closing.py``
     (odometry noise 0.02, seed 0), loop closing on: each frame's route and
     inliers, every loop candidate tried (its RANSAC inliers, projected
@@ -1678,7 +1726,7 @@ def phase_loop(torch, cfg, dev, profile: bool = False):
     CPU with the same draws (the same candidate, keyframe poses within 1e-3,
     front points p99 <= PX99_BOUND px in their observing keyframes); its
     global BA and essential graph profiled.  Returns the kernel launches of
-    the drive."""
+    the drive; ``keep`` receives the correction's inputs (phase 9)."""
     import copy
     from fishbirdeyevisualslam_torch.device import to_device
     from fishbirdeyevisualslam_torch.io import evaluate
@@ -1775,6 +1823,8 @@ def phase_loop(torch, cfg, dev, profile: bool = False):
         fail(f"the rectangle's ATE is {ate} m (bound {RECT_ATE_BOUND} m)")
     if not first:
         fail("no loop candidate passed the RANSAC and the projection gate")
+    if keep is not None:
+        keep.update(first)
 
     # --- the correction at full width, from the captured inputs
     rcfg = cfg if first["closed"] else cfg.replace(
@@ -1795,8 +1845,8 @@ def phase_loop(torch, cfg, dev, profile: bool = False):
     runs = [replay(dev, timed), replay(dev)]
     diff = [k for k, x, y in zip(runs[0][0]._fields, runs[0][0], runs[1][0])
             if not torch.equal(x, y)]
-    t1 = time.perf_counter()
-    cpu = replay(torch.device("cpu"))
+    t1, cpu_timed = time.perf_counter(), []
+    cpu = replay(torch.device("cpu"), cpu_timed)
     t_cpu = time.perf_counter() - t1
     d = map_diff(torch, cfg, runs[0][0], cpu[0], first["cur"])
     a = runs[0][2]
@@ -1806,7 +1856,8 @@ def phase_loop(torch, cfg, dev, profile: bool = False):
           f"{a['cand_frame']}, {a['n_inliers']} RANSAC inliers, {a['n_proj']} projected matches; "
           f"on the card: stages (synchronised ms) {[(x[0], round(x[1], 1)) for x in timed]}, "
           f"pose kernel launches {runs[0][3]}; twice on the card, fields that differ {diff}; on "
-          f"the CPU ({t_cpu:.1f} s): closed {cpu[1]}, candidate frame {cpu[2]['cand_frame']}, "
+          f"the CPU ({t_cpu:.1f} s; stages, ms: {[(x[0], round(x[1])) for x in cpu_timed]}): "
+          f"closed {cpu[1]}, candidate frame {cpu[2]['cand_frame']}, "
           f"{describe_diff(d)} (bounds: bit-identical, the same candidate, poses within 1e-3, "
           f"front points p99 <= {PX99_BOUND} px)", flush=True)
     if diff or not (runs[0][1] and cpu[1] and cpu[2]["cand"] == a["cand"]):
@@ -1826,6 +1877,417 @@ def phase_loop(torch, cfg, dev, profile: bool = False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: asynchronous mapping
+# ---------------------------------------------------------------------------
+
+ASYNC_ATE_BOUND = 0.3   # m: tests/test_async_mapping.py:34
+ASYNC_MIN_TRACKED = 0.6   # share of frames tracked: tests/test_async_mapping.py:30
+N_PAIRS = 3             # synchronous / asynchronous drives timed, alternated
+# frames of each timed drive: the first 10 of phase 5's render (the whole
+# script held 573-760 s with 20, on hosts of different speed)
+N_TIMED = 10
+
+
+def _drive(sys_, seq, frames, flush: bool = False, each=None):
+    for i in frames:
+        fr = seq.frames[i]
+        if each is not None:
+            each(i, True)
+        sys_.track(fr["front"], fr["bird"], fr["mask"], seq.odom[i], fr["timestamp"])
+        if each is not None:
+            each(i, False)
+        if flush:
+            sys_._pipeline.flush()
+    sys_.finish()
+
+
+def _same_run(torch, a, b) -> list:
+    """What differs between two facades' runs: map fields, trajectory entries."""
+    diff = [k for k, x, y in zip(a.map._fields, a.map, b.map) if not torch.equal(x, y)]
+    if len(a.trajectory) != len(b.trajectory) or any(
+            x.state != y.state or not np.array_equal(x.T_rel, y.T_rel)
+            for x, y in zip(a.trajectory, b.trajectory)):
+        diff.append("trajectory")
+    return diff
+
+
+@contextlib.contextmanager
+def syncs_by_thread(torch, counts: collections.Counter):
+    """Count the host syncs that ``torch.cuda.set_sync_debug_mode`` warns of
+    (a lower bound), by thread name: the mode is process-wide, so the
+    tracking thread's and the mapping worker's are told apart here."""
+    def seen(message, *_args, **_kwargs):
+        if "synchroniz" in str(message):
+            counts[threading.current_thread().name] += 1
+
+    if not torch.cuda.is_available():   # a CPU rehearsal: nothing to count
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+@contextlib.contextmanager
+def launches_by_stream(torch, dev, mapping_stream, counts: dict):
+    """Count each kernel wrapper's calls by the stream they launch on (the
+    mapping stream or tracking's), through the modules' attributes that
+    every call site goes through.  A wrapper adds to its count through its
+    module's name, which is the stand-in meanwhile: the stand-in's count is
+    added to the wrapper's on the way out."""
+    from fishbirdeyevisualslam_torch.ops import cuda_fast, cuda_matcher, cuda_patch
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+    mods = ((cuda_fast, "fast_detect_levels"), (cuda_patch, "extract_patches"),
+            (cuda_matcher, "fused_projection_match_dual"),
+            (cuda_matcher, "fused_projection_match"), (cuda_pose_opt, "pose_optimization"))
+    saved = [(m, n, getattr(m, n)) for m, n in mods]
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            side = "mapping" if mapping_stream is not None and \
+                torch.cuda.current_stream(dev) == mapping_stream else "tracking"
+            counts[side][name] += 1
+            return fn(*args, **kwargs)
+        run.launches = 0
+        return run
+
+    stand_ins = [counted(n, fn) for _, n, fn in saved]
+    for (m, n, _), run in zip(saved, stand_ins):
+        setattr(m, n, run)
+    try:
+        yield
+    finally:
+        for (m, n, fn), run in zip(saved, stand_ins):
+            setattr(m, n, fn)
+            fn.launches += run.launches
+
+
+def sync_drive(torch, cfg, dev) -> dict:
+    """Phase 5's drive without its checks (``--async-only``): what phases 8
+    and 9 take from phase 5, the render, the synchronous facade after it and
+    its session after ``N_RESUME`` frames."""
+    from fishbirdeyevisualslam_torch.io.session import save_session
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+    seq = render_sequence(cfg, N_MAP, "arc", MAP_STEP, seed=0)
+    sync = SlamSystem(cfg, device=dev)
+    _drive(sync, seq, range(N_RESUME))
+    buf = io.BytesIO()
+    save_session(sync, buf)
+    _drive(sync, seq, range(N_RESUME, N_MAP))
+    return dict(seq=seq, sync=sync, session=buf.getvalue())
+
+
+def phase_async(torch, cfg, dev, snap):
+    """Asynchronous mapping over phase 5's 30-frame render: (a) the pipeline
+    flushed after every frame must equal phase 5's synchronous facade bit for
+    bit (map and trajectory); (b) a free-running drive: each frame's state,
+    jobs submitted, merged and aborted, journaled keyframes, bird points
+    replayed and dropped, frames tracked while a job was in flight, host syncs
+    and kernel launches of each thread's stream, the tracking thread's
+    per-frame wall with and without a job in flight, and the ATE (bound
+    0.3 m, and at least 60% of the frames tracked: tests/test_async_mapping.py)
+    beside the synchronous one; (c)
+    synchronous and asynchronous frames/s over the render's first ``N_TIMED``
+    frames, alternated ``N_PAIRS`` times.
+    Returns the free drive's kernel launches."""
+    from fishbirdeyevisualslam_torch.io import evaluate
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+
+    seq, sync = snap["seq"], snap["sync"]
+    sync_ate = evaluate.ate_rmse_vs_gt(sync.frame_trajectory_Twb(), seq.gt[:N_MAP])
+
+    # (a) scheduled: flushed after every frame
+    a = SlamSystem(cfg, device=dev, async_mapping=True)
+    t1 = time.perf_counter()
+    try:
+        _drive(a, seq, range(N_MAP), flush=True)
+    finally:
+        a.close()
+    diff = _same_run(torch, a, sync)
+    print(f"[async] scheduled (flushed after every frame): {N_MAP} frames in "
+          f"{time.perf_counter() - t1:.1f} s, {a.n_jobs_submitted} jobs, {a.n_jobs_merged} "
+          f"merged; against phase 5's synchronous drive, fields that differ {diff} "
+          "(bound: bit-identical map and trajectory)", flush=True)
+    if diff or a.n_jobs_submitted == 0 or a.n_jobs_merged != a.n_jobs_submitted:
+        fail("the scheduled asynchronous drive differs from the synchronous one")
+
+    # (b) free-running
+    counters = kernel_counters()
+    b = SlamSystem(cfg, device=dev, async_mapping=True)
+    per_frame, job_ms, syncs = [], [], collections.Counter()
+    by_stream = {"tracking": collections.Counter(), "mapping": collections.Counter()}
+    stage0 = b._mapping_stage
+
+    def timed_stage(st, item):
+        threading.current_thread().name = "mapping worker"
+        t = time.perf_counter()
+        stage0(st, item)
+        job_ms.append((time.perf_counter() - t) * 1e3)
+
+    b._pipeline.close()
+    b._pipeline = type(b._pipeline)([timed_stage], capacity=2)
+    end_of_frame = torch.cuda.current_stream(dev).synchronize if dev.type == "cuda" \
+        else (lambda: None)
+    clock = {}
+
+    def each(i, before):
+        # a frame "with a job in flight" found the worker busy after its merge
+        if before:
+            clock.update(t=time.perf_counter(), n=b.n_frames_in_flight, s=syncs["MainThread"])
+            return
+        end_of_frame()
+        per_frame.append((i, b.trajectory[-1].state, b.n_frames_in_flight > clock["n"],
+                          b.trajectory[-1].is_keyframe, (time.perf_counter() - clock["t"]) * 1e3,
+                          syncs["MainThread"] - clock["s"]))
+
+    for c in counters:
+        c.launches = 0
+    t1 = time.perf_counter()
+    try:
+        with syncs_by_thread(torch, syncs), \
+                launches_by_stream(torch, dev, b._mapping_stream, by_stream):
+            _drive(b, seq, range(N_MAP), each=each)
+    finally:
+        b.close()
+    _sync(torch, dev)
+    dt = time.perf_counter() - t1
+    launches = {c.__name__: c.launches for c in counters}
+    states = [e.state for e in b.trajectory]
+    ate = evaluate.ate_rmse_vs_gt(b.frame_trajectory_Twb(), seq.gt[:N_MAP])
+    busy = [r[4] for r in per_frame if r[2]]
+    idle = [r[4] for r in per_frame if not r[2]]
+    med = lambda xs: statistics.median(xs) if xs else float("nan")
+    print(f"[async] free-running: {N_MAP} frames in {dt:.1f} s; states per frame {states}; jobs "
+          f"submitted {b.n_jobs_submitted}, merged {b.n_jobs_merged}, aborted (InterruptBA) "
+          f"{b.n_jobs_aborted}; keyframes journaled {b.n_journal_kfs} (dropped "
+          f"{b.n_journal_kfs_dropped}); bird points replayed {b.n_birds_replayed}, dropped "
+          f"{b.n_bird_replay_dropped}; frames tracked while a job was in flight "
+          f"{b.n_frames_in_flight}; loops closed {b.n_loops_closed}; keyframes at frames "
+          f"{b.keyframe_indices().tolist()}; native pipeline {b._pipeline.is_native}", flush=True)
+    print(f"[async] ATE {ate:.4f} m (bound {ASYNC_ATE_BOUND} m); the synchronous drive's "
+          f"{sync_ate:.4f} m", flush=True)
+    print(f"[async] tracking thread per frame (frame, state, job in flight, keyframe, ms to its "
+          f"stream's end, host syncs): {[(i, s, bool(f), bool(k), round(t, 1), n) for i, s, f, k, t, n in per_frame]}",
+          flush=True)
+    print(f"[async] tracking thread's frame wall, median: {med(busy):.1f} ms with a job in "
+          f"flight ({len(busy)} frames), {med(idle):.1f} ms without ({len(idle)} frames); the "
+          f"worker's jobs {[round(x, 1) for x in job_ms]} ms (median {med(job_ms):.1f}); host "
+          f"syncs by thread {dict(syncs)}; kernel launches by stream "
+          f"{ {k: dict(v) for k, v in by_stream.items()} }", flush=True)
+    # tests/test_async_mapping.py: tracking may drop while a job is in
+    # flight (no keyframe is inserted meanwhile); at least 6 frames of 10 tracked
+    n_ok = sum(s == tr.OK for s in states)
+    print(f"[async] frames tracked {n_ok} of {N_MAP} (bound: at least 60%, "
+          "tests/test_async_mapping.py)", flush=True)
+    if n_ok < ASYNC_MIN_TRACKED * N_MAP:
+        fail(f"the free-running asynchronous drive tracked too few frames: {states}")
+    if not (b.n_jobs_submitted > 0 and b.n_jobs_merged == b.n_jobs_submitted):
+        fail("the free-running drive merged no job, or not every job")
+    if not (math.isfinite(ate) and ate < ASYNC_ATE_BOUND):
+        fail(f"the asynchronous ATE {ate} m is not below {ASYNC_ATE_BOUND} m")
+    if dev.type == "cuda" and any(v == 0 for v in launches.values()):
+        fail(f"a kernel of the path was never launched: {launches}")
+    if not by_stream["mapping"]:
+        print("[async] no kernel launched on the mapping stream (no loop transform ran)",
+              flush=True)
+
+    # (c) frames/s, synchronous and asynchronous alternated
+    fps = {"sync": [], "async": []}
+    for _ in range(N_PAIRS):
+        for mode in ("sync", "async"):
+            s = SlamSystem(cfg, device=dev, async_mapping=mode == "async")
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            try:
+                _drive(s, seq, range(N_TIMED))
+                _sync(torch, dev)
+            finally:
+                s.close()
+            fps[mode].append(N_TIMED / (time.perf_counter() - t1))
+    print(f"[async] frames/s over the render's first {N_TIMED} frames, alternated sync / async "
+          f"{N_PAIRS} times: sync {[round(x, 3) for x in fps['sync']]} (median "
+          f"{statistics.median(fps['sync']):.3f}), async {[round(x, 3) for x in fps['async']]} "
+          f"(median {statistics.median(fps['async']):.3f})", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: session save and resume, the Sim3 loop correction, the dataset
+# ---------------------------------------------------------------------------
+
+RESUME_BOUND = 1e-4    # tests/test_session_resume.py:57
+SIM3_ATE_BOUND = 0.3   # m: tests/test_e2e_flags.py:53
+
+
+def phase_session_sim3(torch, cfg, dev, snap, first=None):
+    """Phase 7's correction from its inputs with the odometry vet off, under
+    ``fix_scale = False`` (the Sim3 ``correct_loop``, fusion and global BA):
+    twice on the card (bit-identical), with the synchronised ms of
+    ``correct_loop``, the Sim3 LM, ``search_and_fuse`` and ``global_ba``; then
+    once on the CPU (the same candidate, poses within 1e-3, front points p99
+    <= PX99_BOUND px), in a thread of its own while the card drives the rest
+    of the phase, whose times are not read.  Phase 5's facade saved after
+    ``N_RESUME`` frames (``io/session.py``), loaded in a new facade that
+    finishes the drive: its trajectory against the uninterrupted one
+    (bit-identical expected, bound 1e-4).  The arc with ``fix_scale =
+    False``: every frame after the initialization tracked, ATE under 0.3 m.
+    Returns the kernel launches of the two drives."""
+    import copy
+    from fishbirdeyevisualslam_torch.device import to_device
+    from fishbirdeyevisualslam_torch.slam import loop_closing as lc
+
+    if first is None:
+        first = {}
+        phase_loop(torch, cfg, dev, keep=first)
+    cfg_s = cfg.replace(flags=dataclasses.replace(cfg.flags, fix_scale=False))
+    rcfg = cfg_s.replace(tracking=dataclasses.replace(cfg_s.tracking, loop_odom_vet=False))
+    names = ("correct_loop", "optimize_sim3_pose_graph", "search_and_fuse", "global_ba")
+
+    def replay(d, timed=None):
+        closer = lc.LoopCloser(rcfg)
+        closer.__dict__.update(copy.deepcopy(first["closer"]) | {"cfg": rcfg})
+        tried = []
+        with loop_attempts(torch, d, lc, tried), \
+                (sync_timers(torch, d, lc, names, timed) if timed is not None
+                 else contextlib.nullcontext()):
+            m, closed = closer.process_keyframe(to_device(first["m"], d), first["cur"])
+        return m, closed, tried[-1] if tried else None
+
+    timed = []
+    runs = [replay(dev, timed), replay(dev)]
+    diff = [k for k, x, y in zip(runs[0][0]._fields, runs[0][0], runs[1][0])
+            if not torch.equal(x, y)]
+    cpu = {}
+
+    def cpu_replay():
+        t1, cpu["timed"] = time.perf_counter(), []
+        try:
+            cpu["run"] = replay(torch.device("cpu"), cpu["timed"])
+        except BaseException as e:   # noqa: BLE001 (raised again in the main thread)
+            cpu["error"] = e
+        cpu["s"] = time.perf_counter() - t1
+
+    worker = threading.Thread(target=cpu_replay, name="cpu replay")
+    worker.start()
+    try:
+        launches = drive_session_sim3(torch, cfg, cfg_s, dev, snap)
+    finally:
+        worker.join()
+    if "error" in cpu:
+        raise cpu["error"]
+    c = cpu["run"]
+    a = runs[0][2]
+    d = map_diff(torch, cfg, runs[0][0], c[0], first["cur"])
+    print(f"[sim3] phase 7's correction with fix_scale = False and the vet off: closed "
+          f"{runs[0][1]}, keyframe frame {a and a['frame']} with candidate frame "
+          f"{a and a['cand_frame']}, {a and a['n_inliers']} RANSAC inliers, "
+          f"{a and a['n_proj']} projected matches; on the card: stages (synchronised ms) "
+          f"{[(x[0], round(x[1], 1)) for x in timed]}; twice on the card, fields that differ "
+          f"{diff}; on the CPU, beside the drives ({cpu['s']:.1f} s; stages, ms: "
+          f"{[(x[0], round(x[1])) for x in cpu['timed']]}): closed {c[1]}, candidate frame "
+          f"{c[2] and c[2]['cand_frame']}, {describe_diff(d)} (bounds: bit-identical, the "
+          f"same candidate, poses within 1e-3, front points p99 <= {PX99_BOUND} px)", flush=True)
+    if diff or not (runs[0][1] and c[1] and c[2]["cand"] == a["cand"]):
+        fail("the Sim3 loop correction is not reproduced")
+    if not (d["dT"] <= 1e-3 and d["px99"] <= PX99_BOUND):
+        fail("the Sim3 loop correction on the card and on the CPU disagree")
+    return launches
+
+
+def drive_session_sim3(torch, cfg, cfg_s, dev, snap):
+    """Phase 9's drives: the resumed session and the ``fix_scale = False``
+    arc (``cfg_s``), with their checks; returns their kernel launches."""
+    from fishbirdeyevisualslam_torch.io import evaluate
+    from fishbirdeyevisualslam_torch.io.session import load_session
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    seq, sync, session = snap["seq"], snap["sync"], snap["session"]
+    t1 = time.perf_counter()
+    r = load_session(io.BytesIO(session), cfg, device=dev)
+    t_load = time.perf_counter() - t1
+    _drive(r, seq, range(N_RESUME, N_MAP))
+    got, want = r.frame_trajectory_Twb(), sync.frame_trajectory_Twb()
+    dmax = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    diff = _same_run(torch, r, sync)
+    print(f"[session] saved after {N_RESUME} frames ({len(session) / 1e6:.1f} MB npz), loaded in "
+          f"{t_load:.2f} s, {N_MAP - N_RESUME} more frames: trajectory against the "
+          f"uninterrupted drive max |diff| {dmax:.3g} (bound {RESUME_BOUND}), fields that "
+          f"differ {diff}", flush=True)
+    if not dmax <= RESUME_BOUND:
+        fail("the resumed drive differs from the uninterrupted one")
+
+    s = SlamSystem(cfg_s, device=dev)
+    _drive(s, seq, range(N_MAP))
+    states = [e.state for e in s.trajectory]
+    ate = evaluate.ate_rmse_vs_gt(s.frame_trajectory_Twb(), seq.gt[:N_MAP])
+    ini = next((i for i, x in enumerate(states) if x == tr.OK), None)
+    print(f"[sim3] the arc with fix_scale = False: states {states}, loops closed "
+          f"{s.n_loops_closed}, ATE {ate:.4f} m (bound {SIM3_ATE_BOUND} m)", flush=True)
+    if ini is None or any(x != tr.OK for x in states[ini:]) or not ate < SIM3_ATE_BOUND:
+        fail("the fix_scale = False arc lost tracking or missed its ATE bound")
+    launches = {c.__name__: c.launches for c in counters}
+    if dev.type == "cuda" and any(v == 0 for v in launches.values()):
+        fail(f"a kernel of the path was never launched: {launches}")
+    return launches
+
+
+def check_dataset(cfg, snap):
+    """Phase 5's render exported by the port's ``export_sequence`` as binary
+    PGM and read back through ``DatasetSequence.iter_prefetched`` (the native
+    prefetcher): every image equal to the render as uint8 (PGM's type), the
+    masks to the reader's preprocessing of the render's, exactly."""
+    import tempfile
+    from fishbirdeyevisualslam_torch.io import dataset
+    from fishbirdeyevisualslam_torch.runtime import native
+    seq = snap["seq"]
+    q = lambda a: np.clip(np.asarray(a, np.float32), 0, 255).astype(np.uint8).astype(np.float32)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        dataset.export_sequence(seq, root, fmt="pgm")
+        ds = dataset.DatasetSequence.open(root, ext=".pgm", bird_cfg=cfg.bird)
+        ds.crop, ds.downsample = None, 1
+        bad, n, worst = [], 0, 0.0
+        for i, fr in enumerate(ds.iter_prefetched()):
+            src = seq.frames[i]
+            n += 1
+            for k in ("front", "bird", "contour"):
+                if not np.array_equal(fr[k], q(src[k])):
+                    bad.append((i, k))
+                worst = max(worst, float(np.abs(fr[k] - np.asarray(src[k], np.float32)).max()))
+            if not np.array_equal(fr["mask"], dataset.preprocess_bird_mask(src["mask"], cfg.bird)):
+                bad.append((i, "mask"))
+            if np.abs(fr["odom"] - seq.odom[i]).max() > 1e-5:
+                bad.append((i, "odom"))
+    print(f"[dataset] {len(seq.frames)} frames exported as PGM and read back through the native "
+          f"prefetcher ({native.library_path().name}) in {time.perf_counter() - t1:.1f} s: {n} "
+          f"frames, mismatches {bad} (bound: none; images equal to the render as uint8, whose "
+          f"largest change from the f32 render is {worst:.3g})", flush=True)
+    if bad or n != len(seq.frames):
+        fail("the dataset round trip is not exact")
+
+
+_LAP = [T_START]
+
+
+def lap(label: str) -> None:
+    """Print the script's wall time at the end of ``label`` and that part's own."""
+    now = time.perf_counter()
+    print(f"[wall] {label} done at {now - T_START:.1f} s ({now - _LAP[0]:.1f} s)", flush=True)
+    _LAP[0] = now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1839,6 +2301,10 @@ def main() -> int:
                     help="build the kernels and run phase 6, recovery, only (no result lines)")
     ap.add_argument("--loop-only", action="store_true",
                     help="build the kernels and run phase 7, loop closing, only (no result "
+                         "lines)")
+    ap.add_argument("--async-only", action="store_true",
+                    help="build the kernels and run phases 8 and 9 (asynchronous mapping, "
+                         "sessions, the Sim3 correction) and the dataset check only (no result "
                          "lines)")
     ap.add_argument("--survey", action="store_true",
                     help="build the kernels, drive phase 5 and hold the mapping step of every "
@@ -1875,6 +2341,16 @@ def main() -> int:
     if args.loop_only:
         phase_loop(torch, cfg, dev, profile=args.profile)
         return 0
+    if args.async_only:
+        snap = sync_drive(torch, cfg, dev)
+        lap("phase 5's drive")
+        phase_async(torch, cfg, dev, snap)
+        lap("phase 8")
+        phase_session_sim3(torch, cfg, dev, snap)
+        lap("phase 9")
+        check_dataset(cfg, snap)
+        print(f"[wall] {time.perf_counter() - T_START:.1f} s", flush=True)
+        return 0
     rows = phase_kernels(torch, cfg, dev)
     st = Stream(torch, cfg, dev, N_STREAM + N_PHASE + 2)
     rows.update(phase_pose_and_hamming(torch, cfg, dev, st))
@@ -1885,14 +2361,24 @@ def main() -> int:
               f"{slice_launches['pose_optimization'] / N_STREAM:g} pose kernel launches",
               flush=True)
         # the table's launches are those of the entry point's drives (phases
-        # 5-7), each counted from 0 over its own drive
-        snap = {}
-        per_phase = [phase_facade(torch, cfg, dev, profile=args.profile, snap=snap)[0],
-                     phase_recovery(torch, cfg, dev, snap, profile=args.profile),
-                     phase_loop(torch, cfg, dev, profile=args.profile)]
+        # 5-9), each counted from 0 over its own drive
+        snap, first = {}, {}
+        lap("phases 1-4")
+        per_phase = [phase_facade(torch, cfg, dev, profile=args.profile, snap=snap)[0]]
+        lap("phase 5")
+        per_phase.append(phase_recovery(torch, cfg, dev, snap, profile=args.profile))
+        lap("phase 6")
+        per_phase.append(phase_loop(torch, cfg, dev, profile=args.profile, keep=first))
+        lap("phase 7")
+        per_phase.append(phase_async(torch, cfg, dev, snap))
+        lap("phase 8")
+        per_phase.append(phase_session_sim3(torch, cfg, dev, snap, first))
+        lap("phase 9")
+        check_dataset(cfg, snap)
         launches = {k: sum(p[k] for p in per_phase) for k in per_phase[0]}
-        print("[drives] kernel launches (phase 5, 6, 7): " + json.dumps(
-            {k: [p[k] for p in per_phase] for k in per_phase[0]}), flush=True)
+        print("[drives] kernel launches (phase 5, 6, 7, 8 free-running, 9 resume + fix_scale "
+              "arc): " + json.dumps({k: [p[k] for p in per_phase] for k in per_phase[0]}),
+              flush=True)
     by_name = {"fast": "fast_detect_levels", "patch": "extract_patches",
                "match_dual": "fused_projection_match_dual", "match": "fused_projection_match",
                "pose_opt": "pose_optimization", "hamming": "hamming_matrix_packed",
@@ -1906,6 +2392,7 @@ def main() -> int:
                                             "library_ms") if k in row})
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
+    print(f"[wall] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,9 @@ LoopClosing thread, ``src/LoopClosing.cc``, and KeyFrameDatabase,
     ``:234-403``), and ``verify_loop_projection``, its final gate;
   * the correction: ``seed_loop_correction``, ``search_and_fuse``,
     ``loop_essential_graph`` and ``global_ba`` (``CorrectLoop``,
-    ``:405-614``; ``RunGlobalBundleAdjustment``, ``:674-841``);
+    ``:405-614``; ``RunGlobalBundleAdjustment``, ``:674-841``), or under
+    ``fix_scale = False`` the Sim3 ``correct_loop``, ``search_and_fuse`` and
+    ``global_ba``;
   * relocalization: BoW group candidates, node-gated matching and RANSAC PnP
     (``Tracking::Relocalization``, ``Tracking.cc:2231-2392``).
 
@@ -50,6 +52,8 @@ from fishbirdeyevisualslam_torch.solvers.pnp import ransac_pnp
 from fishbirdeyevisualslam_torch.solvers.pose_graph import (
     build_pose_graph_edges, carry_points, optimize_pose_graph)
 from fishbirdeyevisualslam_torch.solvers.pose_opt import BirdObs, FrontObs
+from fishbirdeyevisualslam_torch.solvers.sim3_pose_graph import (
+    Sim3Edges, carry_points_sim3, optimize_sim3_pose_graph)
 from fishbirdeyevisualslam_torch.solvers.sim3_solver import ransac_sim3
 
 RANSAC_ITERS = 128   # hypotheses of ransac_sim3 and ransac_pnp
@@ -326,6 +330,54 @@ def loop_essential_graph(m: ms.MapState, cur_kf: int, loop_kf: int, poses_meas,
     return _carry_all(m, m.kf_Tcw, optimize_pose_graph(cfg, m.kf_Tcw, fixed, edges))
 
 
+def correct_loop(m: ms.MapState, cur_kf: int, loop_kf: int, S_corr,
+                 cfg: SystemConfig) -> ms.MapState:
+    """The single-shot loop correction (``CorrectLoop``, ``LoopClosing.cc:405-614``):
+    ``S_corr`` (8,) maps the current, drifted world onto the loop-consistent
+    one, X' = S X and Scw' = Scw S^-1 for the current keyframe's covisible
+    group; then the essential graph with the loop edge (its measurement the
+    relative pose after the seed) and the loop keyframe fixed, over the
+    measurement-time poses; landmarks carried with their reference keyframe.
+
+    With ``cfg.flags.fix_scale`` the correction and the graph are SE3
+    (``solvers/pose_graph.py``); without it, Sim3 (``solvers/sim3_pose_graph.py``,
+    the monocular scale-drift regime), the SE3 edge assembly giving the
+    topology and the measurements, and the poses written back without scale
+    (t / s).  ``LoopCloser`` takes this route for ``fix_scale = False``; the
+    SE3 route of the default goes through ``seed_loop_correction``,
+    ``search_and_fuse`` and ``loop_essential_graph`` instead (the reference's
+    fuse-before-graph order)."""
+    K = m.K
+    dev = m.kf_Tcw.device
+    C = ms.covisibility_counts(m)
+    Cb = ms.bird_covisibility_counts(m)
+    poses_old = m.kf_Tcw
+    group = _group_of(C, cur_kf, m.kf_valid)
+    ij = lambda k: torch.full((1,), k, dtype=torch.int32, device=dev)
+    fixed = ~m.kf_valid | (torch.arange(K, device=dev) == loop_kf)
+    mp_ref, bp_ref = m.mp_ref_kf.clamp(0, K - 1), m.bp_ref_kf.clamp(0, K - 1)
+    if cfg.flags.fix_scale:
+        corrected = se3.compose(poses_old, se3.inverse(sim3.to_se3(S_corr)))
+        poses_seed = torch.where(group[:, None], corrected, poses_old)
+        loop_T = se3.compose(poses_seed[cur_kf], se3.inverse(poses_seed[loop_kf]))[None]
+        edges = build_pose_graph_edges(cfg, poses_old, C, Cb, m.kf_valid, m.kf_seq, ij(cur_kf),
+                                       ij(loop_kf), loop_T)
+        return _carry_all(m, poses_old, optimize_pose_graph(cfg, poses_seed, fixed, edges))
+    S_old = sim3.from_se3(poses_old)
+    corrected = sim3.compose(S_old, sim3.inverse(S_corr))
+    S_seed = torch.where(group[:, None], corrected, S_old)
+    loop_S = sim3.compose(S_seed[cur_kf], sim3.inverse(S_seed[loop_kf]))[None]
+    e = build_pose_graph_edges(cfg, poses_old, C, Cb, m.kf_valid, m.kf_seq, ij(cur_kf),
+                               ij(loop_kf), sim3.to_se3(loop_S))
+    S_meas = torch.cat([sim3.from_se3(e.T_meas[:-1]), loop_S])
+    S_new = optimize_sim3_pose_graph(S_seed, fixed, Sim3Edges(e.i, e.j, S_meas, e.info, e.valid))
+    mp_new = carry_points_sim3(m.mp_pos, mp_ref, S_old, S_new)
+    bp_new = carry_points_sim3(m.bp_pos, bp_ref, S_old, S_new)
+    return m._replace(kf_Tcw=sim3.to_se3(S_new),
+                      mp_pos=torch.where(m.mp_valid[:, None], mp_new, m.mp_pos),
+                      bp_pos=torch.where(m.bp_valid[:, None], bp_new, m.bp_pos))
+
+
 def map_point_blocks(m: ms.MapState, cfg: SystemConfig):
     """The map as (front, bird) ``PointBlocks``: every landmark with its
     observations, the problem of a whole-map BA."""
@@ -413,6 +465,10 @@ class LoopCloser:
         self.last_loop_seq = -1000
         self.draws = GumbelDraws(99)
         self.tracer = None            # an io.tracing.Tracer: the loop_detect span
+        # True while an accepted loop is being corrected: with asynchronous
+        # mapping, tracking reads it to journal a keyframe instead of asking
+        # for an InterruptBA, which cannot stop a correction
+        self.correcting = False
 
     def _span(self, name: str):
         return self.tracer.span(name) if self.tracer is not None else contextlib.nullcontext()
@@ -452,8 +508,10 @@ class LoopCloser:
 
     def process_keyframe(self, m: ms.MapState, cur_kf: int):
         """Loop detection on the keyframe in slot ``cur_kf``, and the
-        correction of an accepted loop (seed, fusion, essential graph, global
-        BA).  Returns (map, closed)."""
+        correction of an accepted loop: seed, fusion, SE3 essential graph and
+        global BA, or under ``fix_scale = False`` the Sim3 ``correct_loop``,
+        fusion and global BA (``correcting`` is true meanwhile).  Returns
+        (map, closed)."""
         cfg = self.cfg
         cur_seq = int(m.kf_seq[cur_kf])
         if cur_seq - self.last_loop_seq < LOOP_COOLDOWN:
@@ -509,19 +567,21 @@ class LoopCloser:
                 disagreement, tolerance = self._odom_vet(m, cur_kf, cand, T_corr)
                 if disagreement > tolerance:
                     continue
-            if cfg.flags.fix_scale:
-                # the reference's order: seed -> SearchAndFuse (the loop
-                # connections) -> essential graph -> global BA
-                poses_meas = m.kf_Tcw
-                m = seed_loop_correction(m, cur_kf, cand, T_corr, cfg)
-                m = search_and_fuse(m, cur_kf, cand, cfg)
-                m = loop_essential_graph(m, cur_kf, cand, poses_meas, cfg)
-            else:
-                raise NotImplementedError(
-                    "the Sim3 loop correction (fix_scale = False: correct_loop's Sim3 branch "
-                    "and solvers/sim3_pose_graph.py) is not ported yet (ROADMAP queue 1 "
-                    "item 9)")
-            m = global_ba(m, cfg)
+            self.correcting = True
+            try:
+                if cfg.flags.fix_scale:
+                    # the reference's order: seed -> SearchAndFuse (the loop
+                    # connections) -> essential graph -> global BA
+                    poses_meas = m.kf_Tcw
+                    m = seed_loop_correction(m, cur_kf, cand, T_corr, cfg)
+                    m = search_and_fuse(m, cur_kf, cand, cfg)
+                    m = loop_essential_graph(m, cur_kf, cand, poses_meas, cfg)
+                else:
+                    m = correct_loop(m, cur_kf, cand, S_corr, cfg)
+                    m = search_and_fuse(m, cur_kf, cand, cfg)
+                m = global_ba(m, cfg)
+            finally:
+                self.correcting = False
             self.last_loop_seq = cur_seq
             self.consistent_groups = []
             return m, True

@@ -276,8 +276,16 @@ def _obs_slots(obs_valid, pt_idx, valid):
     P, M = obs_valid.shape
     safe = pt_idx.clamp(0, P - 1).long()
     fill = torch.sum(obs_valid.to(torch.int32), dim=1)[safe]
-    same = (pt_idx[None, :] == pt_idx[:, None]) & valid[None, :] & valid[:, None]
-    rank = torch.sum(torch.tril(same, -1).to(torch.int32), dim=1)
+    # a valid entry's rank among the valid entries of its point, in batch
+    # order: its place in a stable sort by point less its group's first place
+    # (a batch may hold every point slot once: no (B, B) comparison)
+    key = torch.where(valid, pt_idx.long(), torch.iinfo(torch.int64).max)
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    first = torch.searchsorted(sk, sk)
+    rank = torch.empty_like(first).scatter_(
+        0, order, torch.arange(sk.shape[0], device=sk.device) - first)
+    rank = torch.where(valid, rank, 0).to(torch.int32)
     ok = valid & (fill + rank < M)
     return safe * M + (fill + rank).clamp(0, M - 1), ok
 

@@ -1,11 +1,11 @@
 """System facade — the port of ``fishbirdeyevisualslam_tpu/slam/system.py``
-in its synchronous mode (the reference's ``System`` and the ``Tracking``
-thread body, ``src/System.cc``, ``src/Tracking.cc:479-770``): the map state,
-the NOT_INITIALIZED / OK / LOST state machine, two-view initialization,
+(the reference's ``System`` and the ``Tracking`` thread body,
+``src/System.cc``, ``src/Tracking.cc:479-770``): the map state, the
+NOT_INITIALIZED / OK / LOST state machine, two-view initialization,
 tracking with its reference-keyframe fallback, the keyframe policy with
-insertion, local mapping and loop closing run synchronously after it, the
-LOST state's recovery (bird-only tracking, BoW + PnP relocalization,
-re-initialization into a new submap), and the per-frame trajectory.
+insertion, local mapping and loop closing, the LOST state's recovery
+(bird-only tracking, BoW + PnP relocalization, re-initialization into a new
+submap), and the per-frame trajectory.
 
 ``SlamSystem.track`` is the entry point, one call per frame.  Everything runs
 on ``device`` (the current CUDA card unless the caller names another).  A
@@ -13,16 +13,22 @@ frame's images and odometry reach the card in one non-blocking copy, and
 the host reads of a tracked frame that inserts no keyframe are those of
 ``track_frame_core`` and one copy of the frame's counts, pose and record.
 
-Not ported yet, and raising ``NotImplementedError`` where the JAX package
-would take them: asynchronous mapping (ROADMAP queue 1 item 4) and the Sim3
-loop correction of ``fix_scale = False`` (item 9, in ``LoopCloser``).
+Mapping runs after each keyframe insertion, synchronously by default.  With
+``async_mapping=True`` it runs as the reference's LocalMapping thread
+(``System.cc:96-111``): a stage of the native pipeline
+(``runtime/native.py``) works on a snapshot of the map, on a CUDA stream of
+its own, while tracking goes on with the map as inserted; the result is
+merged at the next frame boundary, with the bird points tracking created
+meanwhile replayed into it and the keyframes it inserted during a loop
+correction replayed through that correction (``_consume_pending``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,15 +64,33 @@ def _np_compose(a, b) -> np.ndarray:
     return se3.compose(torch.as_tensor(a), torch.as_tensor(b)).numpy()
 
 
+class MappingJob(NamedTuple):
+    """A keyframe handed to the mapping stage: the map snapshot with the
+    keyframe inserted in ``slot``, its frame, the pose of the frame before
+    it (its velocity is taken again from the refined pose at the merge),
+    its trajectory entry, and on a card the event that tracking's stream
+    recorded after the snapshot's last write."""
+
+    map: ms.MapState
+    slot: int
+    frame_id: int
+    prev_Tcw: torch.Tensor
+    entry: int
+    ready: Optional[torch.cuda.Event]
+
+
+class MappingResult(NamedTuple):
+    map: ms.MapState
+    closed: bool     # a loop was closed
+    aborted: bool    # InterruptBA: local BA, keyframe culling and loop closing skipped
+    job: MappingJob
+
+
 class SlamSystem:
     """``System::TrackMonocularWithOdom``: call ``track`` once per frame."""
 
     def __init__(self, cfg: SystemConfig = SystemConfig(), localization_only: bool = False,
                  async_mapping: bool = False, device=None):
-        if async_mapping:
-            raise NotImplementedError(
-                "async_mapping needs the native mapping pipeline, which is not ported yet "
-                "(ROADMAP queue 1 item 4); use the synchronous mode")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.map: Optional[ms.MapState] = None
@@ -80,6 +104,7 @@ class SlamSystem:
         self.last_Tcw = se3.identity(device=self.device)
         self.last_kf_slot = -1
         self.last_kf_frame_id = -1
+        self.ref_kf_tracked = 0   # tracked points of the last keyframe when inserted
         self.frame_id = -1
         self.n_lost_frames = 0
         self._reloc_frame_id = -10000
@@ -115,6 +140,31 @@ class SlamSystem:
         # bird inliers, reference-keyframe bird points, live keyframes
         self.last_scalars: Optional[list] = None
         self._Tcw_host = np.zeros(7, np.float32)
+        # --- asynchronous mapping (the reference's LocalMapping thread,
+        # System.cc:97-98): a job maps a snapshot while tracking continues on
+        # the map as inserted; the result is merged at the next frame boundary
+        self.async_mapping = async_mapping
+        self._pending_result: Optional[MappingResult] = None
+        self._mapping_busy = False
+        self._mapping_error: Optional[BaseException] = None
+        self._kf_journal = []            # keyframes inserted during a loop correction
+        self._job_bp_valid = None        # bp_valid of the job's snapshot
+        self._job_bp_gen = None          # bp_gen of the snapshot (slot identity)
+        self._journal_created_bp = None  # generations of the bird slots journaled inserts made
+        self.n_bird_replay_dropped = 0   # frame-born birds lost for want of a slot
+        self.n_journal_kfs_dropped = 0   # journaled keyframes lost for want of a slot
+        self.n_jobs_submitted = self.n_jobs_merged = self.n_jobs_aborted = 0
+        self.n_journal_kfs = 0           # keyframes journaled
+        self.n_birds_replayed = 0        # frame-born birds replayed into results
+        self.n_frames_in_flight = 0      # frames tracked while a job was in flight
+        self._pipeline = None
+        self._mapping_stream = None
+        if async_mapping:
+            from fishbirdeyevisualslam_torch.runtime.native import AsyncPipeline
+            self._mapping_jobs = {}
+            if self.device.type == "cuda":
+                self._mapping_stream = torch.cuda.Stream(self.device)
+            self._pipeline = AsyncPipeline([self._mapping_stage], capacity=2)
 
     # ------------------------------------------------------------------ utils
     def _gumbel(self, n: int, n_points: int, n_iters: int = 200):
@@ -191,6 +241,185 @@ class SlamSystem:
         valid, fids = self._kf_table()[:2]
         return {int(fids[k]): int(k) for k in np.nonzero(valid)[0]}
 
+    # ------------------------------------------------------- async mapping
+    def _mapping_context(self, job: MappingJob):
+        """The worker's device context: on a card, the mapping stream, after
+        the event tracking's stream recorded behind the snapshot."""
+        if self._mapping_stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(self._mapping_stream))
+        self._mapping_stream.wait_event(job.ready)
+        return stack
+
+    def _sync_mapping(self):
+        """Wait for the mapping stream's work (JAX's ``block_until_ready``);
+        tracking's stream goes on."""
+        if self._mapping_stream is not None:
+            self._mapping_stream.synchronize()
+
+    def _mapping_stage(self, stage: int, item: int):
+        """Runs in the pipeline's worker thread: ``local_mapping_pre``, then,
+        unless tracking asked for an InterruptBA meanwhile (the reference's
+        ``mbAbortBA`` check before BA, ``LocalMapping.cc:85-97``), local BA
+        with keyframe culling and loop closing, on the job's snapshot.  An
+        exception is kept for the merge to raise."""
+        try:
+            job = self._mapping_jobs.pop(item)
+            cfg = self.cfg
+            with self._mapping_context(job):
+                m = tr.local_mapping_pre(job.map, job.slot, cfg, cfg.tracking.mapping_neighbors,
+                                         device=self.device)
+                self._sync_mapping()
+                aborted = self._pipeline.abort_requested(0)
+                closed = False
+                if not aborted:
+                    m = tr.local_mapping_ba(m, job.slot, cfg, device=self.device)
+                    if self.enable_loop_closing:
+                        m, closed = self.loop_closer.process_keyframe(m, job.slot)
+                self._sync_mapping()   # the snapshot stays referenced until here
+            self._pending_result = MappingResult(m, bool(closed), aborted, job)
+        except BaseException as e:   # noqa: BLE001 (ctypes would print and drop it)
+            self._mapping_error = e
+        finally:
+            self._mapping_busy = False
+
+    def _job_in_flight(self) -> bool:
+        """A job submitted and not merged yet: running, or finished with its
+        result (or its exception) waiting for the next frame boundary.  The
+        worker sets the result before it clears ``_mapping_busy``, so the
+        flag is read first."""
+        return (self._mapping_busy or self._pending_result is not None
+                or self._mapping_error is not None)
+
+    def _submit_job(self, m: ms.MapState, slot: int):
+        """Hand the map with its new keyframe in ``slot`` to the mapping stage.
+        On a card, the snapshot's tensors are marked as used by the mapping
+        stream, so the caching allocator does not hand their blocks to
+        tracking's stream while the worker still reads them, and an event
+        orders the worker behind the snapshot's writes."""
+        ready = None
+        if self._mapping_stream is not None:
+            for t in m:
+                t.record_stream(self._mapping_stream)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        self._mapping_busy = True
+        self._job_bp_valid, self._job_bp_gen = m.bp_valid, m.bp_gen
+        self._mapping_jobs[self.frame_id] = MappingJob(m, slot, self.frame_id, self.last_Tcw,
+                                                       len(self.trajectory), ready)
+        self.n_jobs_submitted += 1
+        self._pipeline.submit(self.frame_id)
+
+    def _take_result(self) -> Optional[MappingResult]:
+        """The finished job's result, its tensors marked as used by tracking's
+        stream (they were allocated on the mapping stream); raises the
+        worker's exception."""
+        if self._mapping_error is not None:
+            e, self._mapping_error = self._mapping_error, None
+            raise RuntimeError("the asynchronous mapping job failed") from e
+        res, self._pending_result = self._pending_result, None
+        if res is not None and self._mapping_stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_stream(self._mapping_stream)
+            for t in res.map:
+                t.record_stream(cur)
+        return res
+
+    def _consume_pending(self):
+        """Merge a finished mapping job into the live map and replay what
+        tracking did meanwhile (the reference's propagation of concurrently
+        created keyframes after a background correction,
+        ``LoopClosing.cc:674-841``): the frame-born bird points tracking
+        created since the snapshot go into the result (``replay_bird_points``;
+        a slot is born if it was free at the snapshot or its generation
+        changed since), and each journaled keyframe re-enters at its relative
+        pose to its reference keyframe composed onto that reference's merged
+        pose, or onto its cull-time pose where the reference died.  Where no
+        frame was tracked since the job's keyframe (a flushed pipeline),
+        tracking continues from the refined keyframe, its pose, velocity,
+        associations and trajectory entry taken as the synchronous mode takes
+        them (``Tracking::UpdateLastFrame``)."""
+        res = self._take_result()
+        if res is None:
+            return
+        m, job = res.map, res.job
+        self.n_jobs_merged += 1
+        self.n_jobs_aborted += int(res.aborted)
+        remap = None
+        live = self.map
+        if live is not None and self.cfg.flags.have_bird and self._job_bp_valid is not None:
+            born = live.bp_valid & (~self._job_bp_valid | (live.bp_gen != self._job_bp_gen))
+            if self._journal_created_bp is not None:
+                born = born & ~(self._journal_created_bp == live.bp_gen)
+            m, remap, n_drop = tr.replay_bird_points(m, live, born)
+            n_born, n_drop = torch.stack([torch.sum(born.to(torch.int32)), n_drop]).tolist()
+            self.n_birds_replayed += n_born - n_drop
+            self.n_bird_replay_dropped += n_drop
+        self._job_bp_valid = self._job_bp_gen = self._journal_created_bp = None
+        self.map = m
+        self.n_loops_closed += int(res.closed)
+        if self._kf_journal:
+            self._replay_journal(remap)
+        self._refresh_kf_snapshot()
+        if self.last_assoc is not None:
+            # tracking's bird ids refer to the map before the merge: through the
+            # remap (the identity for surviving points, the new slot of a
+            # frame-born one, -1 for lost ones)
+            bp = self.last_assoc.bp_idx
+            if remap is not None:
+                bp = torch.where(bp >= 0, remap[bp.clamp(0, remap.shape[0] - 1).long()], -1)
+            else:
+                bp = torch.full_like(bp, -1)
+            self.last_assoc = tr.TrackObs(self.last_assoc.mp_idx, bp)
+        if len(self.trajectory) == job.entry + 1 and self.last_kf_frame_id == job.frame_id:
+            Tcw = self.map.kf_Tcw[job.slot]
+            self.last_Tcw = Tcw
+            self._velocity = se3.compose(Tcw, se3.inverse(job.prev_Tcw))
+            self.last_assoc = tr.TrackObs(self.map.kf_mp[job.slot], self.map.kf_bird_mp[job.slot])
+            self.trajectory[job.entry].T_rel = se3.compose(
+                Tcw, se3.inverse(self.map.kf_Tcw[job.slot])).cpu().numpy()
+
+    def _replay_journal(self, remap):
+        """Insert the journaled keyframes into the merged map."""
+        cfg = self.cfg
+        PB = self.map.bp_pos.shape[0]
+        last = None
+        pose = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        for e in self._kf_journal:
+            ref_slot = self._fid_to_slot().get(e["ref_fid"])
+            T_rel = se3.compose(pose(e["Tcw"]), se3.inverse(pose(e["T_ref_live"])))
+            if ref_slot is not None:
+                Tcw = se3.compose(T_rel, self.map.kf_Tcw[ref_slot])
+            elif e["ref_fid"] in self._dead_kf_poses:
+                Tcw = se3.compose(T_rel, pose(self._dead_kf_poses[e["ref_fid"]]))
+            else:
+                Tcw = pose(e["Tcw"])
+            slot, n_free, _ = self._slot_counts(self.map)
+            if not n_free:
+                # starved of slots at the merge: the pressure valve first
+                self.map = tr.force_evict_keyframe(self.map, cfg)
+                self.n_forced_kf_evictions += 1
+                self._refresh_kf_snapshot()
+                slot, n_free, _ = self._slot_counts(self.map)
+            if not n_free:
+                self.n_journal_kfs_dropped += 1
+                continue
+            assoc = e["assoc"]
+            if remap is not None:
+                # bird ids recorded against the live map: through the replay's remap
+                bp = assoc.bp_idx
+                assoc = tr.TrackObs(assoc.mp_idx, torch.where(
+                    bp >= 0, remap[bp.clamp(0, PB - 1).long()], -1))
+            self.map = tr.insert_keyframe(self.map, e["f"], assoc, Tcw, cfg, e["frame_id"],
+                                          slot=slot, device=self.device)
+            last = (slot, e["frame_id"])
+        if last is not None:
+            self.last_kf_slot, self.last_kf_frame_id = last
+            self.last_assoc = tr.TrackObs(self.map.kf_mp[last[0]], self.map.kf_bird_mp[last[0]])
+        self._kf_journal = []
+
     # ------------------------------------------------------------------ API
     def track(self, front_gray, bird_gray, bird_mask, odom, timestamp,
               contour=None) -> np.ndarray:
@@ -211,6 +440,9 @@ class SlamSystem:
                 front_gray, bird_gray, bird_mask, odom, contour)
             f = build_frame(front_gray, bird_gray, bird_mask, odom, timestamp, self.cfg, n_front,
                             contour, cap.max_bird_kp, device=self.device)
+        # merge a finished mapping job at the frame boundary
+        self._consume_pending()
+        self.n_frames_in_flight += int(self._job_in_flight())
         if self.state == tr.NOT_INITIALIZED:
             with self.tracer.span("initialize"):
                 Tcw = self._initialize(f)
@@ -330,7 +562,9 @@ class SlamSystem:
         self.last_kf_frame_id = self.frame_id
         self.last_assoc = tr.TrackObs(m.kf_mp[1], m.kf_bird_mp[1])
         self._backfill(m, f1.odom)
-        counts = torch.stack([n_points, m.n_mp, m.n_bp]).tolist()
+        counts = torch.stack([n_points, m.n_mp, m.n_bp,
+                              torch.sum((m.kf_mp[1] >= 0).to(torch.int32))]).tolist()
+        self.ref_kf_tracked = counts[3]
         self.inits.append(dict(frame=self.frame_id, ref_frame=self.ref_frame_id, route=route,
                                matches=n, T21=init_out.T21.cpu().numpy(), triangulated=counts[0],
                                n_mp=counts[1], n_bp=counts[2]))
@@ -397,6 +631,14 @@ class SlamSystem:
         recent_reloc = self.frame_id - self._reloc_frame_id < 2 * cfg.camera.fps
         min_ok = 10 if recent_reloc else cfg.tracking.min_inliers_ok
         if n_in < min_ok:
+            if self._pipeline is not None and self._job_in_flight():
+                # starved while a job is in flight, on the map before its BA:
+                # drain the pipeline, merge, and track the frame again before
+                # declaring it lost (the reference's Tracking holds
+                # mMutexMapUpdate for the whole frame, Tracking.cc:489)
+                self._pipeline.flush()
+                self._consume_pending()
+                return self._track_ok(f)
             if int(m.kf_counter) <= 5 and not self.localization_only:
                 # lost with a barely-born map: full reset (Tracking.cc:731-740)
                 self.reset()
@@ -410,14 +652,29 @@ class SlamSystem:
             return Tcw
 
         self.last_assoc = assoc
-        # NeedNewKeyFrame (Tracking.cc:1444-1540); mapping is always idle here
-        need, _ = tr.need_new_keyframe(
+        # NeedNewKeyFrame (Tracking.cc:1444-1540): a keyframe needed while a
+        # job is in flight asks for an InterruptBA instead (mono semantics).
+        # Read once: a job that finishes later in this frame stays in flight
+        # until the next frame boundary merges it, so no keyframe goes into
+        # the live map that the merge would replace
+        mapping_idle = not self._job_in_flight()
+        need, interrupt = tr.need_new_keyframe(
             cfg, localization_only=self.localization_only, n_kfs=n_kfs, frame_id=self.frame_id,
             last_kf_frame_id=self.last_kf_frame_id, last_reloc_frame_id=self._reloc_frame_id,
-            n_inliers=n_in, n_ref_matches=nref3 if n_kfs > 2 else nref2, mapping_idle=True,
-            n_bird_matched=n_bird_cur, n_ref_bird=n_ref_bird)
+            n_inliers=n_in, n_ref_matches=nref3 if n_kfs > 2 else nref2,
+            mapping_idle=mapping_idle, n_bird_matched=n_bird_cur, n_ref_bird=n_ref_bird)
+        if interrupt and self._pipeline is not None:
+            if self.loop_closer.correcting:
+                # a loop correction cannot be interrupted: insert into the live
+                # map and journal the keyframe for the merge
+                # (RunGlobalBundleAdjustment, LoopClosing.cc:674-841)
+                if self._journal_keyframe(m, f, assoc, Tcw, n_in):
+                    self._record(f, Tcw, True)
+                    return Tcw
+            else:
+                self._pipeline.signal_abort(0)
         is_kf = False
-        if need:
+        if need and mapping_idle:
             slot, n_free, _ = self._slot_counts(m)
             if not n_free:
                 # every slot live and culling found nothing: evict the
@@ -427,23 +684,54 @@ class SlamSystem:
                 self._refresh_kf_snapshot()
                 slot, n_free, _ = self._slot_counts(m)
             need = n_free > 0
-        if need:
+        if need and mapping_idle:
             m = tr.insert_keyframe(m, f, assoc, Tcw, cfg, self.frame_id, slot=slot,
                                    device=self.device)
-            m = tr.local_mapping_step(m, slot, cfg, cfg.tracking.mapping_neighbors,
-                                      device=self.device)
-            if self.enable_loop_closing:
-                m, closed = self.loop_closer.process_keyframe(m, slot)
-                self.n_loops_closed += int(closed)
-            self.map = m
-            Tcw = m.kf_Tcw[slot]
-            self._refresh_kf_snapshot()  # mapping may have culled a keyframe
+            if self.async_mapping:
+                # tracking continues on the inserted, unrefined map
+                self.map = m
+                self._submit_job(m, slot)
+            else:
+                m = tr.local_mapping_step(m, slot, cfg, cfg.tracking.mapping_neighbors,
+                                          device=self.device)
+                if self.enable_loop_closing:
+                    m, closed = self.loop_closer.process_keyframe(m, slot)
+                    self.n_loops_closed += int(closed)
+                self.map = m
+                Tcw = m.kf_Tcw[slot]
+                self._refresh_kf_snapshot()  # mapping may have culled a keyframe
             self.last_kf_slot = slot
             self.last_kf_frame_id = self.frame_id
-            self.last_assoc = tr.TrackObs(m.kf_mp[slot], m.kf_bird_mp[slot])
+            self.ref_kf_tracked = n_in
+            self.last_assoc = tr.TrackObs(self.map.kf_mp[slot], self.map.kf_bird_mp[slot])
             is_kf = True
         self._record(f, Tcw, is_kf, None if is_kf else host)
         return Tcw
+
+    def _journal_keyframe(self, m: ms.MapState, f: Frame, assoc, Tcw, n_in: int) -> bool:
+        """Insert the frame as a keyframe into the live map during a loop
+        correction and journal it; the bird slots it creates are recorded by
+        generation, so that the merge's replay leaves them to the journal
+        (a slot later freed and recycled is born again).  False where no slot
+        is free."""
+        slot, n_free, _ = self._slot_counts(m)
+        if not (n_free and self.last_kf_slot >= 0):
+            return False
+        T_ref_live = m.kf_Tcw[self.last_kf_slot]
+        m2 = tr.insert_keyframe(m, f, assoc, Tcw, self.cfg, self.frame_id, slot=slot,
+                                device=self.device)
+        created = torch.where(m2.bp_valid & ~m.bp_valid, m2.bp_gen, -1)
+        self._journal_created_bp = created if self._journal_created_bp is None \
+            else torch.maximum(self._journal_created_bp, created)
+        self.map = m2
+        self._kf_journal.append(dict(f=f, assoc=assoc, Tcw=Tcw, frame_id=self.frame_id,
+                                     ref_fid=self.last_kf_frame_id, T_ref_live=T_ref_live))
+        self.n_journal_kfs += 1
+        self.last_kf_slot = slot
+        self.last_kf_frame_id = self.frame_id
+        self.ref_kf_tracked = n_in
+        self.last_assoc = tr.TrackObs(m2.kf_mp[slot], m2.kf_bird_mp[slot])
+        return True
 
     def _ransac_noise(self, n_points: int):
         """One RANSAC's (128, n_points) Gumbel noise from ``draws``, on the device."""
@@ -488,6 +776,13 @@ class SlamSystem:
         keyframe where the bird map needs one, relocalization, then the
         re-initialization of a new submap against the last frame."""
         cfg = self.cfg
+        if self._pipeline is not None:
+            # the LOST path appends keyframes, which a job merged later would
+            # overwrite: drain the pipeline and merge now (the reference's
+            # RequestStop / isStopped handshake, LocalMapping.cc:579-654)
+            if self._mapping_busy:
+                self._pipeline.flush()
+            self._consume_pending()
         m = self.map
         F = f.uv.shape[0]
         Tcw_pred = self._motion_prior(f)
@@ -592,6 +887,7 @@ class SlamSystem:
                 self.last_kf_slot = slot
                 self.last_kf_frame_id = self.frame_id
                 self.last_assoc = tr.TrackObs(m.kf_mp[slot], m.kf_bird_mp[slot])
+                self.ref_kf_tracked = int(torch.sum((m.kf_mp[slot] >= 0).to(torch.int32)))
                 self._record(f, Tcw, True)
                 return Tcw
         self._record(f, Tcw, False)
@@ -638,7 +934,18 @@ class SlamSystem:
         return ms.add_observation(m, dest, tr._slot_tensor(slot2, dev), feat2, can), slot2
 
     def finish(self):
-        """The synchronous mode has no mapping in flight: nothing to drain."""
+        """Drain asynchronous mapping and merge its last result (the
+        reference's ``Shutdown`` joins its threads, ``System.cc:363-382``); a
+        no-op in the synchronous mode."""
+        if self._pipeline is not None:
+            self._pipeline.flush()
+            self._consume_pending()
+
+    def close(self):
+        """``finish()``, then stop the mapping pipeline's worker."""
+        self.finish()
+        if self._pipeline is not None:
+            self._pipeline.close()
 
     def reset(self):
         """``System::Reset``: drop the map and return to NOT_INITIALIZED.  The
@@ -666,6 +973,7 @@ class SlamSystem:
         self.last_assoc = None
         self.last_kf_slot = -1
         self.last_kf_frame_id = -1
+        self.ref_kf_tracked = 0
         self.n_lost_frames = 0
         self.loop_closer = lc.LoopCloser(self.cfg)
         self.loop_closer.tracer = self.tracer

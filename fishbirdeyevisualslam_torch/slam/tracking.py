@@ -524,6 +524,43 @@ def bird_frame_maintenance(m: ms.MapState, f: Frame, cfg: SystemConfig, last_f: 
     return m, bp_idx
 
 
+def replay_bird_points(m: ms.MapState, live: ms.MapState, born):
+    """Re-insert the frame-born bird points that tracking created while an
+    asynchronous mapping job ran on a snapshot (the reference keeps every
+    frame's ``FilterBirdOutlier`` landmarks whatever LocalMapping is doing,
+    ``Tracking.cc:1684-1823``).
+
+    ``m`` is the worker's result, ``live`` the tracking side's map at the
+    merge and ``born`` (PB,) its slots allocated since the snapshot.  The
+    worker never allocates bird slots (it only frees them), so ``born`` is
+    exactly tracking's creations: they get free slots of ``m``, first fit,
+    and their fields from ``live``.  Only those rows are written
+    (``map_state.put_rows``).
+
+    Returns (map, remap (PB,) int32, dropped): live slot -> slot in the
+    result for born points, the identity for slots valid on both sides, -1
+    where the point is gone (culled by the worker, or no free slot); and the
+    born points dropped for want of a slot (0-d int32)."""
+    PB = m.bp_pos.shape[0]
+    i32 = torch.int32
+    idx = torch.arange(PB, dtype=i32, device=m.bp_pos.device)
+    keep = live.bp_valid & ~born & m.bp_valid
+    dest, can = ms.alloc_slots(m.bp_valid, born)
+    remap = torch.where(born, torch.where(can, dest, -1), torch.where(keep, idx, -1))
+    m = ms.reset_bird_slots(m, dest, can)
+    put = functools.partial(ms.put_rows, idx=dest, ok=can)
+    m = m._replace(
+        bp_pos=put(m.bp_pos, values=live.bp_pos),
+        bp_desc=put(m.bp_desc, values=live.bp_desc),
+        bp_desc_pm1=put(m.bp_desc_pm1, values=live.bp_desc_pm1),
+        bp_valid=put(m.bp_valid, values=torch.ones_like(can)),
+        bp_ref_kf=put(m.bp_ref_kf, values=live.bp_ref_kf),
+        bp_birth=put(m.bp_birth, values=live.bp_birth),
+        n_bp=(m.n_bp + torch.sum(can.to(i32))).to(i32),
+    )
+    return m, remap.to(i32), torch.sum((born & ~can).to(i32)).to(i32)
+
+
 def local_map_mask(m: ms.MapState, assoc_mp, cfg: SystemConfig):
     """Local-map candidates: points observed by the keyframes that observe the
     frame's matched points (``UpdateLocalKeyFrames/Points``,

@@ -127,38 +127,52 @@ def _accumulate_family(K: int, e, Jc, Jp, w, kf_idx, lam_p):
 
 
 def _block_diag(blocks):
-    """(K, 6, 6) -> (K, 6, K, 6) with the blocks on the diagonal."""
+    """(K, d, d) -> (K, d, K, d) with the blocks on the diagonal."""
     K = blocks.shape[0]
     eye = torch.eye(K, dtype=blocks.dtype, device=blocks.device)
     return torch.einsum("kl,kab->kalb", eye, blocks)
 
 
-_EDGE_CHUNK = 4096
+EDGE_CHUNK = 4096   # edges per matmul of the (i, j) blocks
 
 
-def _odom_terms(K: int, poses, edges: OdomEdges, w_scale):
+def edge_blocks(K: int, i, j, Ji, Jj, r, w, chunks=None):
+    """The normal equations of E binary edges over K vertices of d dof:
+    H (K, d, K, d) = sum_e J_e^T w_e J_e and g (K, d) = sum_e J_e^T w_e r_e,
+    where J_e = [Ji_e, Jj_e] are the (E, m, d) Jacobians of the residual
+    r_e (E, m) against its vertices i_e and j_e, and w_e its weight (E,).
+    The diagonal blocks by one-hot contractions; the (i, j) blocks as
+    Oi^T (Oj x Hij), one matmul per chunk of edges, the chunks summed in
+    order (a pose graph has K + K^2 + L edges, and a three-operand einsum may
+    form the (E, K, K) product of the one-hots), so the sums run in a fixed
+    order and the system is the same bit for bit from run to run.
+    ``chunks``: the starts of the chunks to take (default all); a chunk left
+    out must hold no edge of nonzero weight, and the system is then the
+    same bit for bit."""
+    d = Ji.shape[-1]
+    Hii = torch.einsum("eki,e,ekj->eij", Ji, w, Ji)
+    Hjj = torch.einsum("eki,e,ekj->eij", Jj, w, Jj)
+    Hij = torch.einsum("eki,e,ekj->eij", Ji, w, Jj)
+    gi = torch.einsum("eki,e,ek->ei", Ji, w, r)
+    gj = torch.einsum("eki,e,ek->ei", Jj, w, r)
+    Oi, Oj = _one_hot(i, K, w.dtype), _one_hot(j, K, w.dtype)
+    diag = torch.einsum("ek,eab->kab", Oi, Hii) + torch.einsum("ek,eab->kab", Oj, Hjj)
+    cross = Hij.new_zeros(K, K * d * d)
+    for s in range(0, Oi.shape[0], EDGE_CHUNK) if chunks is None else chunks:
+        Z = Oj[s:s + EDGE_CHUNK, :, None] * Hij[s:s + EDGE_CHUNK].reshape(-1, 1, d * d)
+        cross = cross + Oi[s:s + EDGE_CHUNK].T @ Z.reshape(Z.shape[0], K * d * d)
+    cross = cross.reshape(K, K, d, d).permute(0, 2, 1, 3)      # (k, a, l, b)
+    H = cross + cross.permute(2, 3, 0, 1) + _block_diag(diag)
+    g = torch.einsum("ek,ei->ki", Oi, gi) + torch.einsum("ek,ei->ki", Oj, gj)
+    return H, g
+
+
+def _odom_terms(K: int, poses, edges: OdomEdges, w_scale, chunks=None):
     e, J1, J2 = res.odom_residuals(edges.T_meas, poses[edges.i.long()],
                                    poses[edges.j.long()])
-    w = edges.info * edges.valid * w_scale
-    Hii = torch.einsum("eki,e,ekj->eij", J1, w, J1)
-    Hjj = torch.einsum("eki,e,ekj->eij", J2, w, J2)
-    Hij = torch.einsum("eki,e,ekj->eij", J1, w, J2)
-    bi = -torch.einsum("eki,e,ek->ei", J1, w, e)
-    bj = -torch.einsum("eki,e,ek->ei", J2, w, e)
-    Oi, Oj = _one_hot(edges.i, K, w.dtype), _one_hot(edges.j, K, w.dtype)
-    diag = torch.einsum("ek,eab->kab", Oi, Hii) + torch.einsum("ek,eab->kab", Oj, Hjj)
-    # the (i, j) blocks: Oi^T (Oj x Hij) as one matmul per chunk of edges, the
-    # chunks summed in order; a pose graph has K + K^2 + L edges, and a
-    # three-operand einsum may form the (E, K, K) product of the one-hots
-    cross = None
-    for s in range(0, Oi.shape[0], _EDGE_CHUNK):
-        Z = Oj[s:s + _EDGE_CHUNK, :, None] * Hij[s:s + _EDGE_CHUNK].reshape(-1, 1, 36)
-        part = Oi[s:s + _EDGE_CHUNK].T @ Z.reshape(Z.shape[0], K * 36)
-        cross = part if cross is None else cross + part
-    cross = cross.reshape(K, K, 6, 6).permute(0, 2, 1, 3)      # (k, a, l, b)
-    Hcc = cross + cross.permute(2, 3, 0, 1) + _block_diag(diag)
-    bc = torch.einsum("ek,ei->ki", Oi, bi) + torch.einsum("ek,ei->ki", Oj, bj)
-    return Hcc, bc
+    Hcc, g = edge_blocks(K, edges.i, edges.j, J1, J2, e, edges.info * edges.valid * w_scale,
+                         chunks)
+    return Hcc, -g
 
 
 def _solve_reduced(Hcc, bc, fixed, lam_c):
@@ -203,14 +217,16 @@ def _chi2_total(chi2_f, wf_act, chi2_b, wb_act, huber_delta, use_huber: bool):
 
 def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBlocks,
                   bird: PointBlocks, odom: OdomEdges, n_iters_1: int | None = None,
-                  n_iters_2: int | None = None) -> BAResult:
+                  n_iters_2: int | None = None, odom_chunks=None) -> BAResult:
     """Two LM stages like the reference's local BA (``Optimizer.cc:2511-2572``):
     ``n_iters_1`` robust iterations (default ``local_ba_iters_1``), the outlier
     re-gate (chi2 above 5.991 or negative depth), ``n_iters_2`` iterations
     without the robust kernel (default ``local_ba_iters_2``), then the final
     classification (``:2574-2610``).  A step is
     kept where the total chi2 drops; the damping halves on a kept step and
-    quadruples otherwise.  Every decision is a device-side select."""
+    quadruples otherwise.  Every decision is a device-side select.
+    ``odom_chunks``: the chunks of ``odom`` that hold a valid edge
+    (``edge_blocks``)."""
     K = poses0.shape[0]
     f_act0 = front.valid & front.point_valid[:, None]
     b_act0 = bird.valid & bird.point_valid[:, None]
@@ -240,7 +256,7 @@ def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBl
                                                                   front.kf_idx, lam)
             Hcc_b, bc_b, Hppi_b, bp_b, Hcp_b = _accumulate_family(K, e_b, Jc_b, Jp_b, w_b,
                                                                   bird.kf_idx, lam)
-            Hcc_o, bc_o = _odom_terms(K, poses, odom, ba.w_pose)
+            Hcc_o, bc_o = _odom_terms(K, poses, odom, ba.w_pose, odom_chunks)
             dxc = _solve_reduced(Hcc_f + Hcc_b + Hcc_o, bc_f + bc_b + bc_o, fixed, lam)
             dxf = backsub(Hppi_f, bp_f, Hcp_f, front.kf_idx, dxc)
             dxb = backsub(Hppi_b, bp_b, Hcp_b, bird.kf_idx, dxc)

@@ -16,7 +16,7 @@ import torch
 
 from fishbirdeyevisualslam_torch.config import SystemConfig
 from fishbirdeyevisualslam_torch.geometry import se3
-from fishbirdeyevisualslam_torch.solvers.ba import OdomEdges, PointBlocks, bundle_adjust
+from fishbirdeyevisualslam_torch.solvers.ba import EDGE_CHUNK, OdomEdges, PointBlocks, bundle_adjust
 
 POSE_GRAPH_ITERS = 20   # LM iterations of the essential graph
 
@@ -30,10 +30,18 @@ def _empty_blocks(dim: int, device) -> PointBlocks:
 
 def optimize_pose_graph(cfg: SystemConfig, poses, fixed, edges: OdomEdges):
     """SE3 pose-graph LM over ``POSE_GRAPH_ITERS`` iterations; ``edges.T_meas``
-    are the relative poses measured when the edges were made."""
+    are the relative poses measured when the edges were made.  The one-hot
+    products of the (i, j) blocks skip the chunks of edges without a valid
+    one (one host read finds them: the K^2 pairs of ``build_pose_graph_edges``
+    are valid only in the rows of live keyframes), which changes no bit."""
     dev = poses.device
+    E = edges.valid.shape[0]
+    pad = torch.zeros(-E % EDGE_CHUNK, dtype=torch.bool, device=dev)
+    live = torch.cat([edges.valid, pad]).reshape(-1, EDGE_CHUNK).any(dim=1).tolist()
+    chunks = [k * EDGE_CHUNK for k, x in enumerate(live) if x]
     out = bundle_adjust(cfg.camera, cfg.ba, poses, fixed, _empty_blocks(2, dev),
-                        _empty_blocks(3, dev), edges, n_iters_1=POSE_GRAPH_ITERS, n_iters_2=0)
+                        _empty_blocks(3, dev), edges, n_iters_1=POSE_GRAPH_ITERS, n_iters_2=0,
+                        odom_chunks=chunks)
     return out.poses
 
 

@@ -192,6 +192,25 @@ def test_reduced_solve_lu_branch(ref):
     assert torch.all(got[0] == 0)
 
 
+def test_edge_blocks_skip_empty_chunks(monkeypatch):
+    """The pose graph's skip of the chunks without a valid edge: H and g
+    equal bit for bit to those of every chunk, at 64-edge chunks over 330
+    edges of which only chunks 0, 2 and the last have nonzero weight."""
+    monkeypatch.setattr(t_ba, "EDGE_CHUNK", 64)
+    g = torch.Generator().manual_seed(3)
+    K, E = 12, 330
+    i, j = (torch.randint(0, K, (E,), generator=g, dtype=torch.int32) for _ in range(2))
+    Ji, Jj = (torch.randn(E, 6, 6, generator=g) for _ in range(2))
+    r = torch.randn(E, 6, generator=g)
+    w = torch.zeros(E)
+    for s in (0, 128, 320):
+        w[s:s + 10] = torch.rand(10, generator=g) * 100
+    H, b = t_ba.edge_blocks(K, i, j, Ji, Jj, r, w)
+    H2, b2 = t_ba.edge_blocks(K, i, j, Ji, Jj, r, w, chunks=[0, 128, 320])
+    assert torch.equal(H, H2) and torch.equal(b, b2)
+    assert not torch.equal(H, t_ba.edge_blocks(K, i, j, Ji, Jj, r, w, chunks=[0, 128])[0])
+
+
 @pytest.fixture(scope="module")
 def ba_run(ref):
     p = ref["ba_problem"]

@@ -780,3 +780,147 @@ def test_global_ba_card(dev):
                                               "bobs_valid"}
     assert _pose_err(got.kf_Tcw[ref.kf_valid], ref.kf_Tcw[ref.kf_valid]) < 1e-3
     torch.testing.assert_close(got.bp_pos, ref.bp_pos, rtol=0, atol=5e-3)
+
+
+# ---------------------------------------------------------------------------
+# asynchronous mapping: kernels on a second stream, the snapshot, the handoff
+# ---------------------------------------------------------------------------
+
+
+def test_kernels_on_a_side_stream(dev):
+    """Kernels 4 and 5 launched under a side ``torch.cuda.Stream`` (as the
+    mapping worker launches them) give results bit-identical to the same call
+    on the default stream: every wrapper launches on the current stream."""
+    from fishbirdeyevisualslam_torch.config import SystemConfig
+    from fishbirdeyevisualslam_torch.geometry import se3
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+    cfg = SystemConfig()
+    prob = _problem(dev, 257, 2049, 5)
+    T_true, front, bird = _pose_problem(dev, 2048, 2048, 12)
+    T0 = se3.retract(T_true, torch.tensor([0.01, 0, -0.01, 0.05, 0.02, 0], device=dev))
+
+    def run():
+        return (cuda_matcher.fused_projection_match(*prob, max_dist=100.0, ratio=0.8),
+                cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, T0, front, bird, T0, 100.0))
+
+    main = run()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    n4, n5 = cuda_matcher.fused_projection_match.launches, cuda_pose_opt.pose_optimization.launches
+    with torch.cuda.stream(side):
+        other = run()
+    side.synchronize()
+    assert cuda_matcher.fused_projection_match.launches == n4 + 1
+    assert cuda_pose_opt.pose_optimization.launches == n5 + 1
+    for a, b in zip(main, other):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def _async_cfg_and_drive():
+    import dataclasses
+    from fishbirdeyevisualslam_torch.io import synthetic
+    from torch_scenes import TCFG
+    cfg = TCFG.replace(capacity=dataclasses.replace(TCFG.capacity, max_front_kp=512,
+                                                    max_bird_kp=512),
+                       orb=dataclasses.replace(TCFG.orb, n_features_init=1024))
+    return cfg, synthetic.make_sequence(cfg, n_frames=3, kind="arc", step=0.5, seed=0)
+
+
+def _feed(s, seq, i, dt=0.0):
+    fr = seq.frames[i]
+    return s.track(fr["front"], fr["bird"], fr["mask"], seq.odom[i], fr["timestamp"] + dt)
+
+
+def test_async_flushed_equals_sync_card(dev):
+    """The system test's three frames on the card: the asynchronous facade,
+    its pipeline flushed after each frame, equals the synchronous facade bit
+    for bit (map, trajectory entries, export); its job ran on the mapping
+    stream."""
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+    cfg, seq = _async_cfg_and_drive()
+    sync = SlamSystem(cfg, device=dev)
+    for i in range(3):
+        _feed(sync, seq, i)
+    s = SlamSystem(cfg, device=dev, async_mapping=True)
+    assert s._mapping_stream is not None
+    try:
+        for i in range(3):
+            _feed(s, seq, i)
+            s._pipeline.flush()
+        s.finish()
+        assert s.n_jobs_submitted == s.n_jobs_merged == 1
+        assert _maps_identical(s.map, sync.map) == []
+        for a, b in zip(s.trajectory, sync.trajectory):
+            assert np.array_equal(a.T_rel, b.T_rel) and a.state == b.state
+        assert np.array_equal(s.frame_trajectory_Twb(), sync.frame_trajectory_Twb())
+    finally:
+        s.close()
+
+
+def test_async_snapshot_and_handoff_card(dev):
+    """With the mapping stage held, tracking runs two frames on the live map
+    while a job is in flight: every tensor of the job's snapshot is unchanged
+    (compared with copies taken at the submit), the handoff in and out
+    (``_submit_job`` with the stage held, ``_take_result``) makes no host
+    sync under ``torch.cuda.set_sync_debug_mode("error")``, and the worker's
+    own host syncs per job are counted and printed."""
+    import threading
+    import warnings
+    from fishbirdeyevisualslam_torch.runtime.native import AsyncPipeline
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+    cfg, seq = _async_cfg_and_drive()
+    s = SlamSystem(cfg, device=dev, async_mapping=True)
+    gate = threading.Event()
+    stage, worker_syncs = s._mapping_stage, []
+
+    def held(st, item):
+        gate.wait(120)
+        n = [0]
+        me = threading.get_ident()
+
+        def seen(message, *a, **k):
+            if "synchroniz" in str(message) and threading.get_ident() == me:
+                n[0] += 1
+
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
+            try:
+                stage(st, item)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        worker_syncs.append(n[0])
+
+    s._pipeline.close()
+    s._pipeline = AsyncPipeline([held], capacity=2)
+    submit0, take0 = s._submit_job, s._take_result
+
+    def strict(fn):
+        def run(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    s._submit_job, s._take_result = strict(submit0), strict(take0)
+    try:
+        for i in range(3):
+            _feed(s, seq, i)
+        assert s.n_jobs_submitted == 1 and s._mapping_busy
+        (job,) = s._mapping_jobs.values()
+        before = [t.clone() for t in job.map]
+        for k in (1, 2):
+            _feed(s, seq, 2, 0.1 * k)
+        torch.cuda.synchronize()
+        assert [n for n, x, y in zip(job.map._fields, before, job.map)
+                if not torch.equal(x, y)] == []
+    finally:
+        gate.set()
+        s.finish()
+        s.close()
+    assert s.n_jobs_merged == 1 and s.n_frames_in_flight >= 2
+    print(f"the worker's host syncs per job: {worker_syncs}")

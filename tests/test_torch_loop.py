@@ -605,8 +605,10 @@ def test_loop_detect_span(ref):
 
 
 def test_loop_closer_sim3_branch_raises(ref, monkeypatch):
-    """With ``fix_scale = False`` the loop is found as before and its Sim3
-    correction raises, naming its ROADMAP item."""
+    """With ``fix_scale = False`` the loop is found as before, and its Sim3
+    correction (ported since: ``correct_loop``'s Sim3 branch, the fusion,
+    global BA) closes it and raises nothing; its parity with JAX is
+    ``tests/test_torch_sim3.py``'s."""
     cfg = TCFG.replace(flags=dataclasses.replace(TCFG.flags, fix_scale=False))
     closer = t_lc.LoopCloser(cfg)
     transforms, vets = [], []
@@ -618,6 +620,7 @@ def test_loop_closer_sim3_branch_raises(ref, monkeypatch):
     m = _tm(ref["inputs"]["loop"]["m"])
     for cur in (4, 5):
         assert not closer.process_keyframe(m, cur)[1]
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        closer.process_keyframe(m, 6)
+    m6, closed = closer.process_keyframe(m, 6)
+    assert closed and not closer.correcting and closer.last_loop_seq == 17
     assert bool(transforms[-1][2]) and vets[-1][0] <= vets[-1][1]
+    assert not torch.equal(m6.kf_Tcw, m.kf_Tcw)

@@ -23,11 +23,16 @@ the rest of the JAX facade.  Both facades ask for the same frames at the same
 budgets; states, keyframe indices, TUM timestamps and the map's counts after
 each frame equal; every pose within 1e-3 (se3 log; measured 1.6e-05).
 
+Sessions (``io/session.py``): the JAX facade saves its session after its
+frames, and the port loads it field for field; the port's facade saved
+after two frames and resumed equals the uninterrupted run exactly.
+
 The port runs on one CPU thread, and the render on one BLAS thread.
 """
 
 import copy
 import dataclasses
+import json
 import os
 import pickle
 import subprocess
@@ -48,6 +53,7 @@ from fishbirdeyevisualslam_torch.io.evaluate import parse_tum
 from fishbirdeyevisualslam_torch.slam import system
 from fishbirdeyevisualslam_torch.slam import tracking as tr
 from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+from fishbirdeyevisualslam_torch.solvers.initializer import GumbelDraws
 
 import torch_refs
 from torch_scenes import TCFG
@@ -127,7 +133,9 @@ def _run(frames, odom, on_frame):
         system.build_frame = build_frame
     out = dict(poses=np.stack(poses), states=[e.state for e in sys_.trajectory],
                kf_indices=sys_.keyframe_indices(), Twb=sys_.frame_trajectory_Twb(),
-               tum=sys_.keyframe_trajectory_tum(), inits=sys_.inits, counts=counts)
+               tum=sys_.keyframe_trajectory_tum(), inits=sys_.inits, counts=counts,
+               map=convert.map_state_to_numpy(sys_.map),
+               T_rel=np.stack([e.T_rel for e in sys_.trajectory]))
     return out, built, after_init
 
 
@@ -156,6 +164,8 @@ def _refs():
                 proc.wait()
         with open(os.path.join(tmp, "jax.pkl"), "rb") as f:
             jax_out = pickle.load(f)
+        with open(os.path.join(tmp, "session.npz"), "rb") as f:
+            jax_out["session"] = f.read()
     return dict(frames=frames, odom=odom, port=port, built=built, jax=jax_out,
                 after_init=after_init)
 
@@ -226,12 +236,16 @@ def _frame(ref, i, blank=False):
 @pytest.mark.parametrize("case", ["async mapping", "loop closing", "fallback under 10 matches",
                                   "lost"])
 def test_branches_outside_the_port_raise(ref, case):
-    """Asynchronous mapping still raises, naming its ROADMAP item; loop
-    closing (on by default, as in the JAX package), the fallback under 10
-    motion-model matches and the LOST state are ported and run."""
+    """Every branch of the JAX facade is ported and runs: asynchronous
+    mapping (its native pipeline built; its parity is
+    ``tests/test_torch_async.py``'s), loop closing (on by default, as in the
+    JAX package), the fallback under 10 motion-model matches and the LOST
+    state."""
     if case == "async mapping":
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            SlamSystem(SCFG, async_mapping=True, device="cpu")
+        sys_ = SlamSystem(SCFG, async_mapping=True, device="cpu")
+        assert sys_._pipeline.is_native and sys_._mapping_stream is None
+        sys_.close()
+        assert sys_.n_jobs_submitted == 0
         return
     sys_ = copy.deepcopy(ref["after_init"])
     sys_.draws = JaxDraws(1)
@@ -253,3 +267,104 @@ def test_branches_outside_the_port_raise(ref, case):
         _track(sys_, _frame(ref, 2), odom)
         assert sys_.n_lost_frames == 1
         assert sys_.last_route in ("relocalized", "reinitialized") and sys_.state == tr.OK
+
+
+# ---------------------------------------------------------------------------
+# sessions (io/session.py)
+# ---------------------------------------------------------------------------
+
+# the port's draws' generator states and the JAX package's keys
+PORT_ONLY = {"draws_state", "lc_draws_state"}
+JAX_ONLY = {"rng_key", "lc_rng_key"}
+
+
+def _npz(path):
+    with np.load(path) as d:
+        return {k: d[k] for k in d.files}
+
+
+def test_session_from_jax(ref, tmp_path):
+    """The JAX facade's session after its three frames loads in the port:
+    every map array, the last and the reference frame, the associations,
+    the poses, the trajectory and every host field equal to the file's; the
+    port saves it again under the same keys, shapes, dtypes and values (but
+    for the draws' state, which each package keeps its own way)."""
+    from fishbirdeyevisualslam_torch.io.session import load_session, save_session
+    path = tmp_path / "jax_session.npz"
+    path.write_bytes(ref["jax"]["session"])
+    data = _npz(path)
+    meta = json.loads(bytes(data["meta_json"]).decode())
+    sys_ = load_session(str(path), SCFG, device="cpu")
+    for prefix, tup in (("map_", sys_.map), ("lf_", sys_.last_frame), ("rf_", sys_.ref_frame)):
+        for k, v in convert.to_numpy(tup).items():
+            if k.endswith("desc_pm1"):   # rebuilt from the packed words
+                src = data[prefix + k.replace("_pm1", "")]
+                bits = (src[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+                want = bits.reshape(src.shape[:-1] + (256,)).astype(np.float32) * 2 - 1
+            else:
+                want = data[prefix + k]
+            assert v.dtype == want.dtype and v.shape == want.shape, prefix + k
+            np.testing.assert_array_equal(v, want, err_msg=prefix + k)
+    np.testing.assert_array_equal(sys_.last_assoc.mp_idx.numpy(), data["assoc_mp"])
+    np.testing.assert_array_equal(sys_.last_assoc.bp_idx.numpy(), data["assoc_bp"])
+    np.testing.assert_array_equal(sys_.last_Tcw.numpy(), data["last_Tcw"])
+    np.testing.assert_array_equal(sys_._velocity.numpy(), data["velocity"])
+    traj = sys_.trajectory
+    assert len(traj) == N_FRAMES == len(data["traj_ts"])
+    np.testing.assert_array_equal(np.stack([e.T_rel for e in traj]), data["traj_T_rel"])
+    for key, attr in (("traj_ts", "timestamp"), ("traj_ref_kf", "ref_kf"),
+                      ("traj_is_kf", "is_keyframe"), ("traj_state", "state"),
+                      ("traj_ref_fid", "ref_frame_id")):
+        np.testing.assert_array_equal([getattr(e, attr) for e in traj], data[key], err_msg=key)
+    host = dict(state=sys_.state, frame_id=sys_.frame_id, last_kf_slot=sys_.last_kf_slot,
+                last_kf_frame_id=sys_.last_kf_frame_id, ref_kf_tracked=sys_.ref_kf_tracked,
+                n_lost_frames=sys_.n_lost_frames, reloc_frame_id=sys_._reloc_frame_id,
+                n_loops_closed=sys_.n_loops_closed,
+                n_forced_kf_evictions=sys_.n_forced_kf_evictions,
+                localization_only=sys_.localization_only, ref_frame_id=sys_.ref_frame_id,
+                lc_last_loop_seq=sys_.loop_closer.last_loop_seq)
+    assert host == {k: meta[k] for k in host}
+    assert sys_.loop_closer.consistent_groups == [(frozenset(m), n) for m, n in meta["lc_groups"]]
+    for key, d in (("odom_history", sys_._odom_history), ("kf_alive", sys_._kf_alive),
+                   ("dead_kf", sys_._dead_kf_poses)):
+        assert list(d) == meta[f"{key}_keys"]
+        if d:
+            np.testing.assert_array_equal(np.stack(list(d.values())), data[f"{key}_vals"])
+    again = tmp_path / "port_session.npz"
+    save_session(sys_, str(again))
+    back = _npz(again)
+    assert set(back) - PORT_ONLY == set(data) - JAX_ONLY
+    for k in set(data) - JAX_ONLY - {"meta_json"}:
+        assert back[k].dtype == data[k].dtype and back[k].shape == data[k].shape, k
+        np.testing.assert_array_equal(back[k], data[k], err_msg=k)
+    assert json.loads(bytes(back["meta_json"]).decode()) == meta
+
+
+def test_session_resume_equals_uninterrupted(ref, tmp_path):
+    """The port's facade saved after two of the three frames, loaded in a new
+    facade and given the third, equals the uninterrupted run exactly: every
+    map field, the trajectory and its export."""
+    from fishbirdeyevisualslam_torch.io.session import load_session, save_session
+    a = copy.deepcopy(ref["after_init"])
+    a.draws = GumbelDraws(3)
+    path = str(tmp_path / "session.npz")
+    save_session(a, path)
+    b = load_session(path, SCFG, device="cpu")
+    assert b.frame_id == 1 and b.state == tr.OK and len(b.trajectory) == 2
+    b.draws = JaxDraws(3)   # frame 2 draws nothing
+    pose = _track(b, ref["frames"][2], ref["odom"][2])
+    p = ref["port"]
+    np.testing.assert_array_equal(pose, p["poses"][2])
+    got = convert.map_state_to_numpy(b.map)
+    for k, want in p["map"].items():
+        np.testing.assert_array_equal(got[k], want, err_msg=k)
+    np.testing.assert_array_equal(np.stack([e.T_rel for e in b.trajectory]), p["T_rel"])
+    np.testing.assert_array_equal(b.frame_trajectory_Twb(), p["Twb"])
+    assert b.keyframe_trajectory_tum() == p["tum"]
+    # the draws' generators are saved and restored too
+    c = SlamSystem(SCFG, device="cpu")
+    c.draws(1, 2, 3)
+    save_session(c, path)
+    d = load_session(path, SCFG, device="cpu")
+    assert torch.equal(c.draws(1, 4, 5)[0], d.draws(1, 4, 5)[0])
+    assert torch.equal(c.loop_closer.draws(1, 4, 5)[0], d.loop_closer.draws(1, 4, 5)[0])

@@ -15,7 +15,8 @@ frame from the same Frame (the extraction's parity is
 ``tests/test_torch_extract.py``'s).  Loop closing is off.  Writes to
 ``DIR/jax.pkl`` the pose of each frame, the states, the keyframe indices, the
 per-frame trajectory, the TUM export, the map's counts after each frame and
-the (frame, budget) of each Frame it asked for.
+the (frame, budget) of each Frame it asked for, and to ``DIR/session.npz``
+the facade's session after its frames (``io/session.py:save_session``).
 
 The test runs this script in a process of its own because the facade's
 jitted functions take no compiler options: it sets ``XLA_FLAGS`` (backend
@@ -37,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from fishbirdeyevisualslam_tpu import config as jcfg  # noqa: E402
+from fishbirdeyevisualslam_tpu.io.session import save_session  # noqa: E402
 from fishbirdeyevisualslam_tpu.slam import map_state as jms  # noqa: E402
 from fishbirdeyevisualslam_tpu.slam import system as jsystem  # noqa: E402
 from fishbirdeyevisualslam_tpu.slam import tracking as jtr  # noqa: E402
@@ -132,6 +134,7 @@ def main(root: str, n_frames: int, timeout: float = 300.0) -> None:
             "mp_valid": int(np.asarray(m.mp_valid).sum()),
             "bp_valid": int(np.asarray(m.bp_valid).sum())})
     warm.join()
+    save_session(sys_, os.path.join(root, "session.npz"))
     out = os.path.join(root, "jax.pkl")
     with open(out + ".tmp", "wb") as fh:
         pickle.dump(dict(
