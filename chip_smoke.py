@@ -9,6 +9,8 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --recovery-only # build + phase 6 (recovery) only
     python3 chip_smoke.py --loop-only     # build + phase 7 (loop closing) only
     python3 chip_smoke.py --async-only    # build + phases 8 and 9 and the dataset check only
+    python3 chip_smoke.py --flags-only    # build + phase 10 (switches, contour, demo, odometer) only
+    python3 chip_smoke.py --realism-only  # build + the 80-frame realism drive only (not in the default run)
 
 Phases, each printing its lines:
   1. the card and the toolchain; the kernels built from
@@ -76,9 +78,21 @@ Phases, each printing its lines:
      fix_scale = False (the Sim3 correct_loop), twice on the card
      (bit-identical) and on the CPU (phase 7's bounds), its stages timed;
      then phase 5's render exported as PGM and read back through the native
-     prefetcher, exact.
+     prefetcher, exact;
+ 10. the switches, each drive at tests/e2e_common.py's reduced capacity (K =
+     64, P = 8192, PB = 4096) and held to its JAX heavy test's bound:
+     have_bird, tight_couple and loose_couple off and reference_parity() over
+     the 10-frame arc; 8 keyframe slots and a keyframe every 2 frames over a
+     36-frame arc; 12 degraded frames with their contour images; then the
+     port's demo (default config, contour on, 10 frames, its files under a
+     temporary prefix, ATE < 0.15 m), the bird odometer (NDT and ICP) on the
+     card against its CPU route, and filter_ipm_edges on the card against
+     the CPU.  Each drive prints its states, routes, ATE, keyframes and
+     synchronised ms per frame.
+``--realism-only`` drives tests/test_realism.py's 80-frame model-violating
+circle (at least 50 frames OK, ATE < 0.25 m); it is not in the default run.
 Then the script's wall time, the kernel table as one JSON line (launches
-summed over the drives of phases 5-9), the card's name and power limit, and
+summed over the drives of phases 5-10), the card's name and power limit, and
 the device line.  Any failed check exits non-zero.  Needs no JAX.
 """
 
@@ -1397,25 +1411,51 @@ def _render_frame(i: int) -> dict:
     return synthetic.render_frame(_RENDER["world"], _RENDER["cfg"], _RENDER["gt"][i], i)
 
 
-def render_sequence(cfg, n_frames: int, kind: str, step: float, odom_noise: float = 0.0,
-                    seed: int = 0, check=()):
-    """``io/synthetic.py:make_sequence`` without degradation, its frames
-    rendered by ``RENDER_WORKERS`` forked processes that share the world it
-    built (they run numpy and CPU torch only, never the card); the frames
-    in ``check`` are rendered again here by ``make_sequence``'s serial route
-    (``synthetic.render_frame``) and must be equal."""
+def _render_real_frame(i: int) -> dict:
+    from fishbirdeyevisualslam_torch.io import realism
+    r = _RENDER
+    return realism.render_real_frame(r["world"], r["cfg"], r["cfg_true"], r["gt"][i], i)
+
+
+def _pool_map(fn, n: int, **shared) -> list:
+    """``fn(i)`` for i < n in ``RENDER_WORKERS`` forked processes that see
+    ``shared`` in ``_RENDER`` (they run numpy and CPU torch only, never the
+    card)."""
     import multiprocessing as mp
+    _RENDER.update(shared)
+    workers = min(RENDER_WORKERS, os.cpu_count() or 1, n)
+    with mp.get_context("fork").Pool(workers, _render_child) as pool:
+        return pool.map(fn, range(n))
+
+
+def pooled_render(cfg, n_frames: int):
+    """A ``render(world, gt)`` for ``synthetic.make_sequence`` (and the
+    demo's ``main``) that renders its frames in the pool."""
+    def pooled(world, gt):
+        try:
+            return _pool_map(_render_frame, n_frames, cfg=cfg, gt=gt, world=world)
+        finally:
+            _RENDER.clear()
+    return pooled
+
+
+def render_sequence(cfg, n_frames: int, kind: str, step: float, odom_noise: float = 0.0,
+                    seed: int = 0, check=(), degrade=None):
+    """``io/synthetic.py:make_sequence``, its clean frames rendered by
+    ``RENDER_WORKERS`` forked processes that share the world it built, then
+    degraded by ``degrade`` where given; the frames in ``check`` (clean
+    sequences only) are rendered again here by ``make_sequence``'s serial
+    route (``synthetic.render_frame``) and must be equal."""
     from fishbirdeyevisualslam_torch.io import synthetic
     workers = min(RENDER_WORKERS, os.cpu_count() or 1, n_frames)
 
     def pooled(world, gt):
-        _RENDER.update(cfg=cfg, gt=gt, world=world)
-        with mp.get_context("fork").Pool(workers, _render_child) as pool:
-            return pool.map(_render_frame, range(n_frames))
+        return _pool_map(_render_frame, n_frames, cfg=cfg, gt=gt, world=world)
 
     t0 = time.perf_counter()
     try:
-        seq = synthetic.make_sequence(cfg, n_frames, kind, odom_noise, seed, step, render=pooled)
+        seq = synthetic.make_sequence(cfg, n_frames, kind, odom_noise, seed, step,
+                                      degrade=degrade, render=pooled)
         dt = time.perf_counter() - t0
         for i in check:
             ref = synthetic.render_frame(_RENDER["world"], cfg, seq.gt[i], i)
@@ -1424,8 +1464,9 @@ def render_sequence(cfg, n_frames: int, kind: str, step: float, odom_noise: floa
     finally:
         _RENDER.clear()
     print(f"[render] {kind} drive of {n_frames} frames, {step} m per frame, odometry noise "
-          f"{odom_noise}, seed {seed}: {dt:.1f} s in {workers} processes (the world built "
-          f"once); frames {list(check)} equal to their serial render", flush=True)
+          f"{odom_noise}, seed {seed}{', degraded' if degrade is not None else ''}: {dt:.1f} s "
+          f"in {workers} processes (the world built once); frames {list(check)} equal to their "
+          f"serial render", flush=True)
     return seq
 
 
@@ -2278,6 +2319,268 @@ def check_dataset(cfg, snap):
         fail("the dataset round trip is not exact")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the switches, the contour, degraded renders, the demo, the odometer
+# ---------------------------------------------------------------------------
+
+N_FLAG = 10          # the JAX flag tests' 10-frame arc at 0.5 m (tests/test_e2e_flags.py:23)
+FLAG_ATE_BOUND = 0.3           # m: tests/test_e2e_flags.py:45,49, tests/test_e2e_knobs.py:43
+N_SOAK, SOAK_STEP = 36, 0.4    # tests/test_e2e_capacity.py:32
+N_DEGRADED = 12                # tests/test_e2e.py:70
+DEGRADED_ATE_BOUND = 0.4       # m: tests/test_e2e.py:80
+N_DEMO = 10                    # frames of the demo drive (tests/test_e2e.py:30's arc)
+DEMO_ATE_BOUND = 0.15          # m: tests/test_e2e.py:50
+N_ODOM, ODOM_STEP = 8, 0.3     # tests/test_bird_odometer.py:27-38
+ODOM_STEP_TOL = 0.12           # m: tests/test_bird_odometer.py:38
+N_REAL = 80                    # tests/test_realism.py:79-92: the 80-frame circle
+REAL_MIN_OK, REAL_ATE_BOUND = 50, 0.25
+
+
+def reduced_cfg(**capacity):
+    """``tests/e2e_common.py:e2e_config`` from the port's own config: K = 64,
+    P = 8192, PB = 4096, local windows of 2048 / 1024 points."""
+    from fishbirdeyevisualslam_torch.config import SystemConfig
+    cfg = SystemConfig()
+    kw = dict(max_keyframes=64, max_points=8192, max_bird_points=4096, max_local_points=2048,
+              max_local_bird_points=1024)
+    kw.update(capacity)
+    return cfg.replace(capacity=dataclasses.replace(cfg.capacity, **kw))
+
+
+def timed_drive(torch, cfg, dev, seq, contour: bool = False):
+    """The facade over ``seq`` (with its contour images where asked), each
+    frame synchronised: (facade, states, ATE, median ms per frame, each
+    frame's route)."""
+    from fishbirdeyevisualslam_torch.io import evaluate
+    from fishbirdeyevisualslam_torch.slam.system import SlamSystem
+    s = SlamSystem(cfg, device=dev)
+    ms, routes = [], []
+    for i, fr in enumerate(seq.frames):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        s.track(fr["front"], fr["bird"], fr["mask"], seq.odom[i], fr["timestamp"],
+                contour=fr["contour"] if contour else None)
+        _sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        routes.append(s.last_route)
+    s.finish()
+    states = [e.state for e in s.trajectory]
+    ate = evaluate.ate_rmse_vs_gt(s.frame_trajectory_Twb(), seq.gt)
+    return s, states, ate, statistics.median(ms), routes
+
+
+def drive_line(label: str, s, states, ate: float, ms: float, routes, extra: str = "") -> str:
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    return (f"[flags] {label}: {sum(x == tr.OK for x in states)}/{len(states)} frames OK, "
+            f"states {states}, routes {dict(collections.Counter(routes))}, ATE {ate:.4f} m, "
+            f"{int(s.map.kf_valid.sum()) if s.map is not None else 0} keyframes live "
+            f"({int(s.map.kf_counter) if s.map is not None else 0} inserted), "
+            f"{ms:.1f} ms per frame (median, synchronised){extra}")
+
+
+def _png_ok(path: str) -> bool:
+    import zlib
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        return False
+    n = int.from_bytes(data[8:12], "big")
+    w, h = (int.from_bytes(data[16 + 4 * i:20 + 4 * i], "big") for i in range(2))
+    idat = data.index(b"IDAT")
+    m = int.from_bytes(data[idat - 4:idat], "big")
+    return n == 13 and len(zlib.decompress(data[idat + 4:idat + 4 + m])) == h * (1 + 3 * w)
+
+
+def phase_flags(torch, dev):
+    """The drives of the JAX package's flag, knob, capacity and degraded e2e
+    tests at ``reduced_cfg``'s capacity, each held to that test's bound:
+    ``have_bird``, ``tight_couple`` and ``loose_couple`` off and
+    ``reference_parity()`` over the 10-frame arc; 8 keyframe slots with a
+    keyframe every 2 frames over a 36-frame arc; 12 degraded frames with
+    their contour images.  Then the port's demo (default config, contour on,
+    10 frames, its files under a temporary prefix), the bird odometer (NDT
+    and ICP) on the card against its CPU route, and ``filter_ipm_edges`` on
+    the card against the CPU.  Returns the kernel launches of the drives."""
+    import tempfile
+    from fishbirdeyevisualslam_torch import SystemConfig, demo, reference_parity
+    from fishbirdeyevisualslam_torch.io import synthetic
+    from fishbirdeyevisualslam_torch.ops.edge_filter import filter_ipm_edges
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from fishbirdeyevisualslam_torch.slam.bird_odometer import BirdOdometer
+
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    base = reduced_cfg()
+    OK = tr.OK
+    arc = render_sequence(base, N_FLAG, "arc", 0.5, check=(N_FLAG - 1,))
+
+    def flagged(**kw):
+        return base.replace(flags=dataclasses.replace(base.flags, **kw))
+
+    s, st, ate, ms, routes = timed_drive(torch, flagged(have_bird=False), dev, arc)
+    n_bp = int(s.map.bp_valid.sum()) if s.map is not None else -1
+    print(drive_line("have_bird off", s, st, ate, ms, routes, f", {n_bp} bird points valid "
+                     f"(bounds: last frame OK, no bird point, ATE < {FLAG_ATE_BOUND} m)"), flush=True)
+    if not (st[-1] == OK and n_bp == 0 and ate < FLAG_ATE_BOUND):
+        fail("the have_bird = False drive missed its bounds")
+    s, st, ate, ms, routes = timed_drive(torch, flagged(tight_couple=False), dev, arc)
+    print(drive_line("tight_couple off", s, st, ate, ms, routes,
+                     f" (bounds: last frame OK, ATE < {FLAG_ATE_BOUND} m)"), flush=True)
+    if not (st[-1] == OK and ate < FLAG_ATE_BOUND):
+        fail("the tight_couple = False drive missed its bounds")
+    s, st, ate, ms, routes = timed_drive(torch, flagged(loose_couple=False), dev, arc)
+    print(drive_line("loose_couple off", s, st, ate, ms, routes,
+                     " (bound: at least 5 frames OK; the scale is free)"), flush=True)
+    if sum(x == OK for x in st) < 5:
+        fail("the loose_couple = False drive tracked fewer than 5 frames")
+    parity = reference_parity()
+    cfg_p = base.replace(bird=parity.bird, ba=parity.ba, tracking=parity.tracking)
+    s, st, ate, ms, routes = timed_drive(torch, cfg_p, dev, arc)
+    print(drive_line("reference_parity()", s, st, ate, ms, routes,
+                     f" (bounds: last frame OK, ATE < {FLAG_ATE_BOUND} m)"), flush=True)
+    if not (st[-1] == OK and ate < FLAG_ATE_BOUND):
+        fail("the reference_parity() drive missed its bounds")
+
+    soak_cfg = reduced_cfg(max_keyframes=8)
+    soak_cfg = soak_cfg.replace(tracking=dataclasses.replace(soak_cfg.tracking,
+                                                             max_frames_between_kf=2))
+    soak = render_sequence(soak_cfg, N_SOAK, "arc", SOAK_STEP)
+    s, st, ate, ms, routes = timed_drive(torch, soak_cfg, dev, soak)
+    inserted, live = int(s.map.kf_counter), int(s.map.kf_valid.sum())
+    n_bad = sum(x != OK for x in st)
+    print(drive_line("capacity soak (K = 8, a keyframe every 2 frames)", s, st, ate, ms, routes,
+                     f" (bounds: more than 10 inserted, at most 8 live, last frame OK, at most 6 "
+                     f"frames not OK, ATE < {FLAG_ATE_BOUND} m)"), flush=True)
+    if not (inserted > 10 and live <= 8 and st[-1] == OK and n_bad <= 6
+            and ate < FLAG_ATE_BOUND):
+        fail("the capacity soak missed its bounds")
+
+    deg = render_sequence(base, N_DEGRADED, "arc", 0.5, degrade=synthetic.DegradeConfig())
+    s, st, ate, ms, routes = timed_drive(torch, base, dev, deg, contour=True)
+    print(drive_line("degraded, with the contour", s, st, ate, ms, routes,
+                     f" (bounds: at least 7 frames OK, ATE < {DEGRADED_ATE_BOUND} m)"), flush=True)
+    if not (sum(x == OK for x in st) >= 7 and ate < DEGRADED_ATE_BOUND):
+        fail("the degraded drive missed its bounds")
+    lap("phase 10's facade drives")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "demo")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            stats = demo.main(["--frames", str(N_DEMO), "--out-prefix", prefix]
+                              + (["--cpu"] if dev.type == "cpu" else []),
+                              render=pooled_render(SystemConfig(), N_DEMO))
+        dt = time.perf_counter() - t0
+        text = out.getvalue()
+        printed = json.loads(text[text.index("{"):text.rindex("}") + 1])
+        files = {k: os.path.getsize(prefix + k) if os.path.exists(prefix + k) else 0
+                 for k in ("_map.png", "_traj.tum")}
+        png_ok = files["_map.png"] > 0 and _png_ok(prefix + "_map.png")
+        st = stats["states"]
+        print(f"[flags] the demo (default config at full capacity, contour on, {N_DEMO} frames): "
+              f"{dt:.1f} s; states {st}; stats "
+              f"{json.dumps({k: v for k, v in printed.items() if k != 'timing'})}, "
+              f"{printed['timing']['median_s'] * 1e3:.1f} ms per frame (median); files {files}, "
+              f"the PNG decodes: {png_ok} (bounds: last frame OK, at least 7 OK, at least 3 "
+              f"keyframes, ATE < {DEMO_ATE_BOUND} m)", flush=True)
+    if not (st[-1] == OK and sum(x == OK for x in st) >= 7 and printed["n_keyframes"] >= 3
+            and printed["ate_rmse_m"] < DEMO_ATE_BOUND and png_ok and files["_traj.tum"] > 0):
+        fail("the demo missed its bounds")
+    launches = {c.__name__: c.launches for c in counters}
+    lap("the demo")
+
+    cfg = SystemConfig()
+    world = synthetic.make_world(4)
+    renders = []
+    for p in synthetic.make_trajectory(N_ODOM, kind="straight", step=ODOM_STEP):
+        bird = synthetic.render_bird(world, cfg, p)
+        mask, _ = synthetic.bird_mask_and_contour(cfg, bird)
+        renders.append((bird.astype(np.float32), mask.astype(np.float32)))
+    for method in ("ndt", "icp"):
+        poses, ms = {}, []
+        for d in (dev, torch.device("cpu")):
+            odo = BirdOdometer(cfg, method=method, device=d)
+            out_p = []
+            for b, m in renders:
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                out_p.append(odo.add_new_frame(b, m))
+                if d.type == dev.type:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            poses[d.type] = np.stack(out_p)
+        step = np.linalg.norm(np.diff(poses[dev.type][:, :2], axis=0), axis=1)
+        dmax = float(np.abs(poses[dev.type] - poses["cpu"]).max())
+        print(f"[flags] BirdOdometer ({method}) over {N_ODOM} frames at {ODOM_STEP} m: steps "
+              f"{np.round(step, 4).tolist()} m, card against the CPU route max |diff| {dmax:.3g} "
+              f"(bounds: each step after the first within {ODOM_STEP_TOL} m of {ODOM_STEP} m, "
+              f"1e-4); {statistics.median(ms):.1f} ms per frame on the card (median)", flush=True)
+        if not (np.all(np.abs(step[1:] - ODOM_STEP) < ODOM_STEP_TOL) and dmax <= 1e-4):
+            fail(f"the bird odometer ({method}) missed its bounds")
+    b, m = renders[0]
+    want = filter_ipm_edges(torch.from_numpy(b), torch.from_numpy(m * 255.0))
+    bd, md = torch.from_numpy(b).to(dev), torch.from_numpy(m * 255.0).to(dev)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    got = filter_ipm_edges(bd, md)
+    _sync(torch, dev)
+    ms_f = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    print(f"[flags] filter_ipm_edges on a {b.shape[0]}x{b.shape[1]} bird render: card equal to "
+          f"the CPU route {same}, {int(want[1].sum())} bird edge pixels, {ms_f:.1f} ms on the "
+          f"card (synchronised, first call)", flush=True)
+    if not same:
+        fail("filter_ipm_edges on the card differs from the CPU route")
+    print("[flags] kernel launches over the facade drives and the demo: " + json.dumps(launches),
+          flush=True)
+    if dev.type == "cuda" and any(v == 0 for v in launches.values()):
+        fail(f"a kernel of the path was never launched: {launches}")
+    return launches
+
+
+def pooled_real_render(cfg, n_frames: int):
+    """A ``render(world, cfg_true, gt)`` for ``realism.make_real_sequence``
+    that renders its frames in the pool."""
+    def pooled(world, cfg_true, gt):
+        try:
+            return _pool_map(_render_real_frame, n_frames, cfg=cfg, cfg_true=cfg_true, gt=gt,
+                             world=world)
+        finally:
+            _RENDER.clear()
+    return pooled
+
+
+def phase_realism(torch, dev):
+    """``tests/test_realism.py``'s E2E (``TestRealismE2E``): the facade over
+    the 80-frame model-violating circle (odometry noise 0.02, seed 0, the
+    contour images passed) at ``reduced_cfg``'s capacity; at least 50 frames
+    OK and ATE < 0.25 m.  Frames 0 and 79 are rendered again serially and
+    must be equal."""
+    from fishbirdeyevisualslam_torch.io import realism, synthetic
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    cfg = reduced_cfg()
+    t0 = time.perf_counter()
+    seq = realism.make_real_sequence(cfg, n_frames=N_REAL, kind="circle", odom_noise=0.02, seed=0,
+                                     render=pooled_real_render(cfg, N_REAL))
+    dt = time.perf_counter() - t0
+    gt = synthetic.make_trajectory(N_REAL, "circle", step=0.35, seed=0)
+    world = realism.make_real_world(cfg, realism.RealismConfig(), 0, traj=gt)
+    cfg_true = realism._perturbed_cfg(cfg, realism.RealismConfig(), 0)
+    for i in (0, N_REAL - 1):
+        ref = realism.render_real_frame(world, cfg, cfg_true, gt[i], i)
+        if not all(np.array_equal(seq.frames[i][k], ref[k]) for k in ref):
+            fail(f"frame {i} of the pooled realism render differs from its serial render")
+    print(f"[realism] {N_REAL}-frame model-violating circle rendered in {dt:.1f} s; frames 0 "
+          f"and {N_REAL - 1} equal to their serial render", flush=True)
+    s, st, ate, ms, routes = timed_drive(torch, cfg, dev, seq, contour=True)
+    n_ok = sum(x == tr.OK for x in st)
+    print(drive_line("the realism circle", s, st, ate, ms, routes,
+                     f" (bounds: at least {REAL_MIN_OK} frames OK, ATE < {REAL_ATE_BOUND} m)")
+          .replace("[flags]", "[realism]"), flush=True)
+    if not (n_ok >= REAL_MIN_OK and ate < REAL_ATE_BOUND):
+        fail("the realism drive missed its bounds")
+
+
 _LAP = [T_START]
 
 
@@ -2306,6 +2609,12 @@ def main() -> int:
                     help="build the kernels and run phases 8 and 9 (asynchronous mapping, "
                          "sessions, the Sim3 correction) and the dataset check only (no result "
                          "lines)")
+    ap.add_argument("--flags-only", action="store_true",
+                    help="build the kernels and run phase 10 (the switches, the contour, "
+                         "degraded renders, the demo, the bird odometer) only (no result lines)")
+    ap.add_argument("--realism-only", action="store_true",
+                    help="build the kernels and drive the 80-frame model-violating circle of "
+                         "tests/test_realism.py only (no result lines)")
     ap.add_argument("--survey", action="store_true",
                     help="build the kernels, drive phase 5 and hold the mapping step of every "
                          "fourth keyframe against the CPU, only (no result lines)")
@@ -2341,6 +2650,14 @@ def main() -> int:
     if args.loop_only:
         phase_loop(torch, cfg, dev, profile=args.profile)
         return 0
+    if args.flags_only:
+        phase_flags(torch, dev)
+        lap("phase 10")
+        return 0
+    if args.realism_only:
+        phase_realism(torch, dev)
+        lap("the realism drive")
+        return 0
     if args.async_only:
         snap = sync_drive(torch, cfg, dev)
         lap("phase 5's drive")
@@ -2361,7 +2678,7 @@ def main() -> int:
               f"{slice_launches['pose_optimization'] / N_STREAM:g} pose kernel launches",
               flush=True)
         # the table's launches are those of the entry point's drives (phases
-        # 5-9), each counted from 0 over its own drive
+        # 5-10), each counted from 0 over its own drive
         snap, first = {}, {}
         lap("phases 1-4")
         per_phase = [phase_facade(torch, cfg, dev, profile=args.profile, snap=snap)[0]]
@@ -2375,10 +2692,12 @@ def main() -> int:
         per_phase.append(phase_session_sim3(torch, cfg, dev, snap, first))
         lap("phase 9")
         check_dataset(cfg, snap)
+        per_phase.append(phase_flags(torch, dev))
+        lap("phase 10")
         launches = {k: sum(p[k] for p in per_phase) for k in per_phase[0]}
         print("[drives] kernel launches (phase 5, 6, 7, 8 free-running, 9 resume + fix_scale "
-              "arc): " + json.dumps({k: [p[k] for p in per_phase] for k in per_phase[0]}),
-              flush=True)
+              "arc, 10 switches + demo): "
+              + json.dumps({k: [p[k] for p in per_phase] for k in per_phase[0]}), flush=True)
     by_name = {"fast": "fast_detect_levels", "patch": "extract_patches",
                "match_dual": "fused_projection_match_dual", "match": "fused_projection_match",
                "pose_opt": "pose_optimization", "hamming": "hamming_matrix_packed",

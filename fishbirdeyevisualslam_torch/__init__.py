@@ -27,4 +27,4 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from fishbirdeyevisualslam_torch.config import SystemConfig  # noqa: E402,F401
+from fishbirdeyevisualslam_torch.config import SystemConfig, reference_parity  # noqa: E402,F401

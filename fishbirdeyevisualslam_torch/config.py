@@ -280,3 +280,38 @@ class SystemConfig:
 
 
 DEFAULT_CONFIG = SystemConfig()
+
+
+def reference_parity() -> SystemConfig:
+    """SystemConfig pinned to REFERENCE semantics wherever the shipped default
+    deliberately deviates; use this when comparing trajectories head-to-head
+    against the C++ reference:
+
+      * ``bird.filter_gate_mult = 1.0`` — the reference's BirdMapPointMatch
+        accepts on an L2 norm < 0.05 m (``ORBmatcher.cc:1886``); the default
+        3x Chebyshev box absorbs IPM prediction error on the synthetic renders.
+      * ``ba.pose_prior_info = 0.0`` — the reference uses odometry only as the
+        LM seed; the default soft prior anchors weakly-constrained frames.
+      * ``tracking.init_level0_only = True`` — SearchForInitialization is
+        level-0 only in the reference (``ORBmatcher.cc:406``).
+      * ``tracking.loop_odom_vet = False`` — the reference accepts loops on
+        BoW + Sim3 inliers + the >= 40-projection check alone
+        (``LoopClosing.cc:234-403``); the odometry-consistency vet is an r4
+        extension.  (The >= 40-projection gate itself IS reference behavior
+        and stays on.)
+      * ``tracking.point_pressure_valve = False`` /
+        ``tracking.lost_eviction_valve = False`` — the reference runs
+        unbounded in RAM and never evicts.  The reactive slot-famine
+        fallbacks at keyframe insertion remain (dropping a keyframe outright
+        would deviate more); they cannot fire in a head-to-head run that
+        stays under the configured capacities.
+    """
+    cfg = SystemConfig()
+    return cfg.replace(
+        bird=dataclasses.replace(cfg.bird, filter_gate_mult=1.0),
+        ba=dataclasses.replace(cfg.ba, pose_prior_info=0.0),
+        tracking=dataclasses.replace(cfg.tracking, init_level0_only=True,
+                                     loop_odom_vet=False,
+                                     point_pressure_valve=False,
+                                     lost_eviction_valve=False),
+    )

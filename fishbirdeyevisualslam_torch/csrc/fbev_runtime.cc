@@ -170,6 +170,7 @@ struct Prefetcher {
   std::atomic<bool> stop{false};
   size_t capacity;
   size_t next = 0;
+  size_t loading = 0;  // files taken by the worker and not yet in `ready`
   std::thread worker;
 };
 
@@ -219,11 +220,13 @@ static void prefetch_loop(Prefetcher* p) {
       if (p->stop.load()) return;
       if (p->next >= p->paths.size()) return;
       idx = p->next++;
+      p->loading++;
     }
     LoadedFile* lf = load_file(p->paths[idx]);
     {
       std::lock_guard<std::mutex> lk(p->mu);
       p->ready.push_back(lf);
+      p->loading--;
     }
     p->cv.notify_all();
   }
@@ -244,9 +247,11 @@ void* fbev_prefetch_create(const char** paths, int n, int capacity) {
 int fbev_prefetch_next(void* pp, uint8_t** data, long* len, int* width, int* height) {
   auto* p = (Prefetcher*)pp;
   std::unique_lock<std::mutex> lk(p->mu);
+  // exhausted only once every file was taken and none is still loading: a
+  // file taken but not yet pushed would otherwise read as the end
   p->cv.wait(lk, [&] {
     return p->stop.load() || !p->ready.empty() ||
-           (p->next >= p->paths.size() && p->ready.empty());
+           (p->next >= p->paths.size() && p->loading == 0);
   });
   if (p->ready.empty()) return 0;
   LoadedFile* lf = p->ready.front();

@@ -15,8 +15,7 @@ The front image is masked, cropped to 1900x800 and half-sized
 blanked (``:279-313``).
 
 Image decoding: binary PGM natively (the C++ prefetcher) or in numpy,
-PNG/JPG through matplotlib's imread where it is installed; ``.npy`` arrays
-always.  ``export_sequence`` writes a synthetic drive (``io/synthetic.py``)
+PNG/JPG/BMP through Pillow where it is installed; ``.npy`` arrays always.  ``export_sequence`` writes a synthetic drive (``io/synthetic.py``)
 in this layout, for round trips.
 """
 
@@ -76,10 +75,10 @@ def _imread_gray(path: str) -> np.ndarray:
         w, h, _ = tokens
         img = np.frombuffer(data[i : i + w * h], np.uint8).reshape(h, w)
     else:
-        import matplotlib.image as mpimg
-        img = mpimg.imread(path)
-        if img.dtype in (np.float32, np.float64):
-            img = img * 255.0
+        # PNG / JPG / BMP through Pillow, 8 bits a channel
+        from PIL import Image
+        with Image.open(path) as im:
+            img = np.asarray(im if im.mode in ("L", "RGB", "RGBA") else im.convert("RGB"))
     img = np.asarray(img, np.float32)
     if img.ndim == 3:
         img = img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114

@@ -924,3 +924,129 @@ def test_async_snapshot_and_handoff_card(dev):
         s.close()
     assert s.n_jobs_merged == 1 and s.n_frames_in_flight >= 2
     print(f"the worker's host syncs per job: {worker_syncs}")
+
+
+# ---------------------------------------------------------------------------
+# the edge filter, the bird odometer, the map fixture, the contour mask
+# ---------------------------------------------------------------------------
+
+
+def _bird_drive(n=8):
+    """``tests/test_bird_odometer.py``'s drive: world 4, straight, 0.3 m a frame."""
+    from fishbirdeyevisualslam_torch.config import SystemConfig
+    from fishbirdeyevisualslam_torch.io import synthetic
+    cfg = SystemConfig()
+    world = synthetic.make_world(4)
+    out = []
+    for p in synthetic.make_trajectory(n, kind="straight", step=0.3):
+        bird = synthetic.render_bird(world, cfg, p)
+        mask, _ = synthetic.bird_mask_and_contour(cfg, bird)
+        out.append((bird.astype(np.float32), mask.astype(np.float32)))
+    return cfg, out
+
+
+def test_filter_ipm_edges_card_equals_cpu(dev):
+    """The whole ``EdgeFilterIPM`` pipeline on the card: every output equal
+    to the CPU route's, on two bird renders and their freespace; no host
+    read inside."""
+    from fishbirdeyevisualslam_torch.ops.edge_filter import filter_ipm_edges
+    _, drive = _bird_drive(2)
+    for bird, mask in drive:
+        b, f = torch.from_numpy(bird), torch.from_numpy(mask * 255.0)
+        want = filter_ipm_edges(b, f)
+        bd, fd = b.to(dev), f.to(dev)
+        filter_ipm_edges(bd, fd)        # the first call copies its constant tables
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = filter_ipm_edges(bd, fd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        assert int(want[1].sum()) > 50
+
+
+@pytest.mark.parametrize("method,edge_filter", [("ndt", False), ("icp", False), ("ndt", True)])
+def test_bird_odometer_card_equals_cpu(dev, method, edge_filter):
+    """``BirdOdometer`` over the 8-frame drive on the card and on the CPU:
+    poses within 1e-4 m (the card's scatter-adds and reductions sum in
+    another order); each step after the first within 0.12 m of 0.3 m."""
+    from fishbirdeyevisualslam_torch.slam.bird_odometer import BirdOdometer
+    cfg, drive = _bird_drive()
+    poses = {}
+    for d in (dev, torch.device("cpu")):
+        odo = BirdOdometer(cfg, method=method, use_edge_filter=edge_filter, device=d)
+        poses[d.type] = np.stack([odo.add_new_frame(b, m) for b, m in drive])
+    np.testing.assert_allclose(poses["cuda"], poses["cpu"], atol=1e-4)
+    step = np.linalg.norm(np.diff(poses["cuda"][:, :2], axis=0), axis=1)
+    assert np.all(np.abs(step[1:] - 0.3) < 0.12), step
+
+
+def test_make_realistic_map_on_card(dev):
+    """The default capacities (K = 256, P = 32768, PB = 16384) built on the
+    card: integer fields equal to the CPU build, floats within 1e-6
+    relative, every tensor on the card."""
+    import time
+    from fishbirdeyevisualslam_torch.config import SystemConfig
+    from fishbirdeyevisualslam_torch.convert import map_state_to_numpy
+    from fishbirdeyevisualslam_torch.io.fixtures import make_realistic_map
+    cfg = SystemConfig()
+    t0 = time.perf_counter()
+    m = make_realistic_map(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert all(x.device.type == "cuda" for x in m)
+    assert m.kf_Tcw.shape[0] == 256 and m.mp_pos.shape[0] == 32768 and m.bp_pos.shape[0] == 16384
+    got, want = map_state_to_numpy(m), map_state_to_numpy(make_realistic_map(cfg, 0, "cpu"))
+    for k, w in want.items():
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got[k], w, rtol=1e-6, atol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+    print(f"make_realistic_map at the default capacities on the card: {dt:.2f} s")
+
+
+def test_degraded_frame_with_contour(dev):
+    """One degraded frame through ``build_frame`` with its contour, on the
+    card and on the CPU: the detection mask equal, every valid bird keypoint
+    on it, fewer bird keypoints than without the contour, and the two
+    devices' keypoint sets equal to >= 97%, with and without the contour.
+    The pyramid's float32 products sum in another order on the card, so a
+    corner's score can move in its last bits and trade places in the top-k
+    (measured: 98.75% of the 1437 bird keypoints equal with the contour)."""
+    from fishbirdeyevisualslam_torch.config import SystemConfig
+    from fishbirdeyevisualslam_torch.io import synthetic
+    from fishbirdeyevisualslam_torch.slam.frame import bird_detection_mask, build_frame
+    cfg = SystemConfig()
+    seq = synthetic.make_sequence(cfg, n_frames=2, kind="arc", step=0.5,
+                                  degrade=synthetic.DegradeConfig())
+    fr = seq.frames[1]
+    n = cfg.capacity.max_front_kp
+    frames = {d: build_frame(fr["front"], fr["bird"], fr["mask"], seq.odom[1], fr["timestamp"],
+                             cfg, n, contour=fr["contour"], device=d) for d in ("cuda", "cpu")}
+    bare = build_frame(fr["front"], fr["bird"], fr["mask"], seq.odom[1], fr["timestamp"], cfg, n,
+                       device=dev)
+    mask = bird_detection_mask(torch.from_numpy(fr["mask"].astype(np.float32)),
+                               torch.from_numpy(fr["contour"].astype(np.float32)))
+    mask_card = bird_detection_mask(torch.from_numpy(fr["mask"].astype(np.float32)).to(dev),
+                                    torch.from_numpy(fr["contour"].astype(np.float32)).to(dev))
+    assert torch.equal(mask_card.cpu(), mask)
+    f, c = frames["cuda"], frames["cpu"]
+    ok = f.bird_kp_valid.cpu()
+    uv = f.bird_uv.cpu()[ok].round().long()
+    assert mask[uv[:, 1], uv[:, 0]].float().mean() >= 0.95   # pyramid levels round off it
+    assert 100 < int(ok.sum()) < int(bare.bird_kp_valid.sum())
+    bare_cpu = build_frame(fr["front"], fr["bird"], fr["mask"], seq.odom[1], fr["timestamp"], cfg,
+                           n, device="cpu")
+    for name, a, b, va, vb in (
+            ("bird", f.bird_uv, c.bird_uv, f.bird_kp_valid, c.bird_kp_valid),
+            ("front", f.uv_raw, c.uv_raw, f.kp_valid, c.kp_valid),
+            ("bird without the contour", bare.bird_uv, bare_cpu.bird_uv, bare.bird_kp_valid,
+             bare_cpu.bird_kp_valid)):
+        ka = {tuple(x) for x in a.cpu()[va.cpu()].tolist()}
+        kb = {tuple(x) for x in b[vb].tolist()}
+        share = len(ka & kb) / max(len(ka), 1)
+        print(f"{name}: {len(ka)} keypoints on the card, {len(kb)} on the CPU, "
+              f"{share:.4f} of the card's among the CPU's")
+        assert share >= 0.97, name

@@ -307,6 +307,23 @@ def test_pgm_reader(tmp_path):
     pf.close()
 
 
+def test_prefetcher_never_ends_early(tmp_path):
+    """A file the worker has taken but not yet queued is not the end of the
+    sequence: over many one-file prefetchers, ``next()`` always returns it
+    (a reader that took ``next >= len(paths)`` with an empty queue for the
+    end returned None in about one call of five)."""
+    img = np.arange(48, dtype=np.uint8).reshape(6, 8)
+    p = tmp_path / "t.pgm"
+    with open(p, "wb") as f:
+        f.write(b"P5\n8 6\n255\n" + img.tobytes())
+    for _ in range(500):
+        pf = Prefetcher([str(p)])
+        got = pf.next()
+        assert got is not None and pf.next() is None
+        pf.close()
+    np.testing.assert_array_equal(got, img)
+
+
 @pytest.mark.parametrize("fmt", ["npy", "pgm"])
 def test_exports_cross_packages(drive, tmp_path, fmt):
     """The same drive exported by the port and by the JAX package: the same
