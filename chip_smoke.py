@@ -10,6 +10,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --loop-only     # build + phase 7 (loop closing) only
     python3 chip_smoke.py --async-only    # build + phases 8 and 9 and the dataset check only
     python3 chip_smoke.py --flags-only    # build + phase 10 (switches, contour, demo, odometer) only
+    python3 chip_smoke.py --parallel-only # build + phase 11 (sharded BA, batched kernel 5, ...) only
     python3 chip_smoke.py --realism-only  # build + the 80-frame realism drive only (not in the default run)
 
 Phases, each printing its lines:
@@ -88,11 +89,24 @@ Phases, each printing its lines:
      temporary prefix, ATE < 0.15 m), the bird odometer (NDT and ICP) on the
      card against its CPU route, and filter_ipm_edges on the card against
      the CPU.  Each drive prints its states, routes, ATE, keyframes and
-     synchronised ms per frame.
+     synchronised ms per frame;
+ 11. the multi-device layer (parallel/sharded_ba.py): the landmark-sharded
+     global BA at full width (io/fixtures.py:make_realistic_map, K = 256, P =
+     32768, PB = 16384, M = 16, 5 + 10 iterations) over a one-rank NCCL group,
+     bit-identical to bundle_adjust, and over two processes on the one card
+     (gloo carrying CUDA tensors, scripts/torch_multiprocess_ba_worker.py),
+     the ranks equal and within 5e-2 of one rank; the entry point
+     batched_pose_optimization over 16 problems of phase 2's shape, one
+     launch of kernel 5 over the batch, bit-identical to 16 single launches
+     and each row within phase 2's bounds of the plain LM, timed against the
+     16 single launches; match_map_points_dual on phase 3's map equal to the
+     ids form and the plain matcher; extract equal to each view of
+     extract_dual.
 ``--realism-only`` drives tests/test_realism.py's 80-frame model-violating
 circle (at least 50 frames OK, ATE < 0.25 m); it is not in the default run.
 Then the script's wall time, the kernel table as one JSON line (launches
-summed over the drives of phases 5-10), the card's name and power limit, and
+summed over the drives of phases 5-10; the batched pose kernel's over phase
+11's batched_pose_optimization), the card's name and power limit, and
 the device line.  Any failed check exits non-zero.  Needs no JAX.
 """
 
@@ -154,20 +168,24 @@ def own_kernel_names() -> list:
     return names
 
 
-def time_ms(torch, fn, iters: int = 20, own: bool = False):
-    """Device time of ``fn`` in ms: its launches captured once in a CUDA graph,
-    then the median of ``iters`` replays, each timed by CUDA events.  A plain
-    call would time the host's Python between the events as well, which at
-    these sizes is longer than the kernels.  With ``own``, returns (that time,
-    {kernel: ms per replay}) where the second sums the profiler's device time
-    of the port's own kernels over ``iters`` more replays: the wrapper's
-    preparation ops and allocations are in the first number only."""
+def time_ms(torch, fn, iters: int = 20, own: bool = False, warmup: int = 3, out=None):
+    """Device time of ``fn`` in ms: its launches captured once in a CUDA graph
+    (after ``warmup`` calls), then the median of ``iters`` replays, each timed
+    by CUDA events.  A plain call would time the host's Python between the
+    events as well, which at these sizes is longer than the kernels.  With
+    ``own``, returns (that time, {kernel: ms per replay}) where the second
+    sums the profiler's device time of the port's own kernels over ``iters``
+    more replays: the wrapper's preparation ops and allocations are in the
+    first number only.  ``out``, a list, receives the last warm-up call's
+    result."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for _ in range(warmup):
+            res = fn()
     torch.cuda.current_stream().wait_stream(side)
+    if out is not None:
+        out.append(res)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
@@ -2581,6 +2599,221 @@ def phase_realism(torch, dev):
         fail("the realism drive missed its bounds")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-device layer and the functions nothing in the system calls
+# ---------------------------------------------------------------------------
+
+N_BATCH = 16                  # kernel 5 over a batch: problems of phase 2's shape
+BA_ITERS = (5, 10)            # the sharded global BA's LM stages (scripts/bench_scaling.py)
+SHARDED_BOUND = 5e-2          # max |d pose| of two ranks against one (scripts/bench_scaling.py:143)
+RANK_TIMEOUT = 150.0          # s: a rank of the two-rank run that takes longer fails the phase
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                      "torch_multiprocess_ba_worker.py")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _synced_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def two_rank_ba(tmp: str) -> list:
+    """The sharded global BA at full width over two processes on the one card
+    (gloo carrying CUDA tensors).  Returns each rank's result (an npz).
+    A rank that fails or outlives RANK_TIMEOUT fails the phase; both are
+    killed on the way out."""
+    port = _free_port()
+    outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, WORKER, str(r), "2", str(port), outs[r],
+                               "--device", "cuda", "--problem", "realistic", "--iters",
+                               *map(str, BA_ITERS)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    deadline = time.perf_counter() + RANK_TIMEOUT
+    logs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                logs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+            except subprocess.TimeoutExpired:
+                fail(f"rank {r} of the two-rank BA ran past {RANK_TIMEOUT:.0f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-3000:], flush=True)
+            fail(f"rank {r} of the two-rank BA exited with {p.returncode}")
+    return [dict(np.load(o)) for o in outs]
+
+
+def phase_parallel(torch, cfg, dev, st):
+    """Phase 11: the sharded global BA at full width (a one-rank NCCL group
+    bit-identical to ``bundle_adjust``; two processes on the card over gloo
+    within SHARDED_BOUND of it), kernel 5 over a batch of N_BATCH problems
+    (bit-identical to single launches, each row within phase 2's bounds of
+    the plain LM, the graph time of one batched launch against N_BATCH
+    single ones), ``match_map_points_dual`` on phase 3's map against the ids
+    form and the plain matcher, and ``extract`` against the views of
+    ``extract_dual``.  The drive whose launches count is the entry point
+    ``batched_pose_optimization``.  Returns (launches, the batched kernel's
+    row)."""
+    import tempfile
+    import torch.distributed as dist
+    from fishbirdeyevisualslam_torch.geometry import se3
+    from fishbirdeyevisualslam_torch.ops import features
+    from fishbirdeyevisualslam_torch.parallel import sharded_ba
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+    from fishbirdeyevisualslam_torch.solvers.ba import bundle_adjust
+    from fishbirdeyevisualslam_torch.solvers.pose_opt import BirdObs, FrontObs
+    sys.path.insert(0, os.path.dirname(WORKER))
+    import torch_multiprocess_ba_worker as worker
+
+    t_phase = time.perf_counter()
+    F, FB = cfg.capacity.max_front_kp, cfg.capacity.max_bird_kp
+    probs = [pose_problem(torch, cfg, dev, F, FB, seed) for seed in range(N_BATCH)]
+    T0 = se3.identity((N_BATCH,), device=dev)
+    front = FrontObs(*(torch.stack(x) for x in zip(*(p[1] for p in probs))))
+    bird = BirdObs(*(torch.stack(x) for x in zip(*(p[2] for p in probs))))
+    prob = worker.realistic_problem(cfg, dev)
+    K, P, PB = prob[0].shape[0], prob[2].Xw.shape[0], prob[3].Xw.shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = sharded_ba.make_mesh(device=dev)
+            sharded_ba.distributed_bundle_adjust(cfg, mesh, *prob, *BA_ITERS)  # warm-up
+            ref, ref_ms = _synced_ms(torch, lambda: bundle_adjust(
+                cfg.camera, cfg.ba, *prob, n_iters_1=BA_ITERS[0], n_iters_2=BA_ITERS[1]))
+            one, one_ms = _synced_ms(torch, lambda: sharded_ba.distributed_bundle_adjust(
+                cfg, mesh, *prob, *BA_ITERS))
+            # the drive: the entry point, with the counts from 0
+            cuda_pose_opt.pose_optimization_batched.launches = 0
+            out = sharded_ba.batched_pose_optimization(cfg, mesh, T0, front, bird)
+            torch.cuda.synchronize()
+            launches = {"pose_optimization_batched":
+                        cuda_pose_opt.pose_optimization_batched.launches}
+        finally:
+            dist.destroy_process_group()
+        same = all(torch.equal(x, y) for x, y in zip(one, ref))
+        print(f"[parallel] sharded global BA, K={K} P={P} PB={PB} M={prob[2].kf_idx.shape[1]}, "
+              f"{BA_ITERS[0]} + {BA_ITERS[1]} iterations (warm): bundle_adjust {ref_ms:.1f} ms, "
+              f"one rank over NCCL {one_ms:.1f} ms, bit-identical: {same}; poses moved by up "
+              f"to {(ref.poses - prob[0]).abs().max().item():.4g} (the map's poses and its "
+              f"odometry disagree)", flush=True)
+        if not same:
+            fail("the one-rank sharded BA differs from bundle_adjust")
+        t_ranks = time.perf_counter()
+        ranks = two_rank_ba(tmp)
+        t_ranks = time.perf_counter() - t_ranks
+    d_ranks = float(np.abs(ranks[0]["poses"] - ranks[1]["poses"]).max())
+    d_one = float(np.abs(ranks[0]["poses"] - one.poses.cpu().numpy()).max())
+    d_pts = np.abs(ranks[0]["front_Xw"] - one.front_Xw.cpu().numpy()).max(-1)
+    flips = float((ranks[0]["front_inlier"] != one.front_inlier.cpu().numpy()).mean())
+    print(f"[parallel] two ranks on the card over gloo: {float(ranks[0]['ms']):.1f} / "
+          f"{float(ranks[1]['ms']):.1f} ms (after a warm-up run; {t_ranks:.1f} s with the "
+          f"processes' start); ranks differ by {d_ranks:.3g}; max |d pose| against one rank "
+          f"{d_one:.4g} (bound {SHARDED_BOUND}); front points against one rank: median "
+          f"{np.median(d_pts):.3g}, p99 {np.percentile(d_pts, 99):.3g}, max {d_pts.max():.4g} m; "
+          f"front inlier flags flipped {flips:.4%}", flush=True)
+    if d_ranks != 0.0 or not all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0]
+                                 if k != "ms"):
+        fail("the two ranks of the sharded BA disagree")
+    if not d_one <= SHARDED_BOUND:
+        fail("the two-rank sharded BA is off the one-rank run")
+    t_ba = time.perf_counter() - t_phase
+
+    # kernel 5 over the batch: against single launches and the plain LM
+    if launches["pose_optimization_batched"] == 0:
+        fail("batched_pose_optimization never launched the batched pose kernel")
+    singles = [cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, T0[b], p[1], p[2])
+               for b, p in enumerate(probs)]
+    if not all(torch.equal(x[b], y) for b, s in enumerate(singles) for x, y in zip(out, s)):
+        fail("the batched pose kernel differs from single launches")
+    # the plain LM of every row: timed in a graph, its one warm-up call the reference
+    plain = []
+    plain_ms = time_ms(torch, lambda: cuda_pose_opt.pose_optimization_batched_plain(
+        cfg.camera, cfg.ba, T0, front, bird), iters=3, warmup=1, out=plain)
+    torch.cuda.synchronize()
+    err = 0.0
+    for b in range(N_BATCH):
+        d = pose_diff(out.Tcw[b], plain[0].Tcw[b])
+        ff = (out.front_inlier[b] != plain[0].front_inlier[b]).float().mean().item()
+        bf = (out.bird_inlier[b] != plain[0].bird_inlier[b]).float().mean().item()
+        dn = abs(int(out.n_inliers[b]) - int(plain[0].n_inliers[b]))
+        if not (d <= 1e-3 and ff < 0.02 and bf < 0.02 and dn <= 5):
+            fail(f"row {b} of the batched pose kernel differs from the plain LM: pose {d:.3g}, "
+                 f"flips {ff:.4f} / {bf:.4f}, n_inliers {dn}")
+        err = max(err, d)
+    evals = cfg.ba.pose_rounds * (cfg.ba.pose_iters + 1)
+    n_act = int(front.valid.sum()) + int(bird.valid.sum())
+    ops = evals * n_act * 200 + cfg.ba.pose_rounds * (front.valid.numel()
+                                                      + bird.valid.numel()) * 35
+    nbytes = N_BATCH * (F * (6 * 4 + 1 + 1) + FB * (7 * 4 + 1 + 1) + 7 * 4 * 3)
+    b_ms, b_by = bound(nbytes, ops, PEAK_F32)
+    row = dict(name="pose_optimization_batched",
+               source="fishbirdeyevisualslam_torch/csrc/pose_opt.cu",
+               replaces="fishbirdeyevisualslam_tpu/solvers/pallas_pose_opt.py:387",
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               plain_ms=plain_ms)
+    time_row(torch, row, f"pose_optimization_batched, B = {N_BATCH}",
+             lambda: cuda_pose_opt.pose_optimization_batched(cfg.camera, cfg.ba, T0, front, bird))
+    row["singles_ms"] = time_ms(torch, lambda: [cuda_pose_opt.pose_optimization(
+        cfg.camera, cfg.ba, T0[b], p[1], p[2]) for b, p in enumerate(probs)])
+    print(f"[parallel] pose_optimization_batched: B={N_BATCH} x (N={F}, NB={FB}): bit-identical "
+          f"to {N_BATCH} single launches, within {err:.3g} of the plain LM; graph "
+          f"{row['ms']:.4f} ms, kernel's own {row['kernel_ms']:.4f} ms, against {N_BATCH} single "
+          f"launches {row['singles_ms']:.4f} ms (plain {row['plain_ms']:.2f} ms, bound "
+          f"{b_ms:.5f} ms by {b_by}); {cuda_pose_opt.max_active_clusters()} clusters of 8 "
+          f"resident at once; launches over the drive: {json.dumps(launches)}", flush=True)
+    t_batch = time.perf_counter() - t_phase - t_ba
+
+    # match_map_points_dual on phase 3's map, and extract on one view
+    m, last_mp = st.start[0], st.start[2]
+    f, T_pred = st.build(0), st.start[5]
+    cand = torch.cat([last_mp, m.kf_mp[0]])
+    mask = torch.zeros(m.mp_pos.shape[0], dtype=torch.bool, device=dev)
+    mask[cand[cand >= 0].long()] = True
+    th = float(cfg.matcher.th_high)
+    got = tr.match_map_points_dual(m, f, cfg, T_pred, mask, 15.0, th)
+    ids = torch.unique(cand[cand >= 0])            # ascending, the mask's order
+    alt = tr.match_map_points_dual_ids(m, f, cfg, T_pred, ids, 15.0, th, True)
+    plain = tr.match_map_points_dual(m, f, cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, use_fused_matcher=False)), T_pred, mask, 15.0, th)
+    for label, other in (("the ids form", alt), ("the plain matcher", plain)):
+        if not all(torch.equal(x, y) for r, o in zip(got, other) for x, y in zip(r, o)):
+            fail(f"match_map_points_dual differs from {label}")
+    print(f"[parallel] match_map_points_dual on phase 3's map (P={mask.shape[0]}, "
+          f"{int(mask.sum())} candidates): {int(got[0].count)} / {int(got[1].count)} matches at r / 2r, equal to "
+          f"the ids form and to the plain matcher", flush=True)
+    bmask = torch.ones(st.bird.shape, dtype=torch.bool, device=dev)
+    bmask[:40] = False
+    dual = features.extract_dual(st.front, st.bird, cfg.orb, F, FB, mask_b=bmask)
+    views = (features.extract(st.front, cfg.orb, F),
+             features.extract(st.bird, cfg.orb, FB, detection_mask=bmask))
+    for name, a, b in zip(("front", "bird"), views, dual):
+        diff = [k for k, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+        print(f"[parallel] extract, {name} view: {int(a.valid.sum())} keypoints; fields that "
+              f"differ from extract_dual's view: {diff or 'none'}", flush=True)
+        if diff:
+            fail(f"extract differs from the {name} view of extract_dual")
+    t_all = time.perf_counter() - t_phase
+    print(f"[parallel] phase 11: {t_all:.1f} s (the sharded BA {t_ba:.1f}, of which the two "
+          f"ranks {t_ranks:.1f}; the batched kernel {t_batch:.1f}; the match and extract "
+          f"{t_all - t_ba - t_batch:.1f})", flush=True)
+    return launches, row
+
+
 _LAP = [T_START]
 
 
@@ -2615,6 +2848,10 @@ def main() -> int:
     ap.add_argument("--realism-only", action="store_true",
                     help="build the kernels and drive the 80-frame model-violating circle of "
                          "tests/test_realism.py only (no result lines)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build the kernels and run phase 11 (the sharded global BA on one and "
+                         "two ranks, kernel 5 over a batch, match_map_points_dual, extract) only "
+                         "(no result lines)")
     ap.add_argument("--survey", action="store_true",
                     help="build the kernels, drive phase 5 and hold the mapping step of every "
                          "fourth keyframe against the CPU, only (no result lines)")
@@ -2658,6 +2895,12 @@ def main() -> int:
         phase_realism(torch, dev)
         lap("the realism drive")
         return 0
+    if args.parallel_only:
+        st = Stream(torch, cfg, dev, 1)
+        lap("the build and phase 3's map")
+        phase_parallel(torch, cfg, dev, st)
+        lap("phase 11")
+        return 0
     if args.async_only:
         snap = sync_drive(torch, cfg, dev)
         lap("phase 5's drive")
@@ -2695,6 +2938,9 @@ def main() -> int:
         per_phase.append(phase_flags(torch, dev))
         lap("phase 10")
         launches = {k: sum(p[k] for p in per_phase) for k in per_phase[0]}
+        batched_launches, rows["pose_opt_batched"] = phase_parallel(torch, cfg, dev, st)
+        launches.update(batched_launches)
+        lap("phase 11")
         print("[drives] kernel launches (phase 5, 6, 7, 8 free-running, 9 resume + fix_scale "
               "arc, 10 switches + demo): "
               + json.dumps({k: [p[k] for p in per_phase] for k in per_phase[0]}), flush=True)
@@ -2702,13 +2948,15 @@ def main() -> int:
                "match_dual": "fused_projection_match_dual", "match": "fused_projection_match",
                "pose_opt": "pose_optimization", "hamming": "hamming_matrix_packed",
                "masked_match": "fused_masked_match"}
+    if "pose_opt_batched" in rows:
+        by_name["pose_opt_batched"] = "pose_optimization_batched"
     kernels = []
     for key, fn_name in by_name.items():
         row = dict(rows[key], route="cuda", launches=launches.get(fn_name, 0))
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "kernel_ms", "plain_ms",
                                             "bound_ms", "bound_by", "dense_bound_ms",
-                                            "library_ms") if k in row})
+                                            "singles_ms", "library_ms") if k in row})
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"[wall] {time.perf_counter() - T_START:.1f} s", flush=True)

@@ -2,17 +2,19 @@
 ``fishbirdeyevisualslam_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package stays the reference; this package mirrors its structure and
-names module by module (``geometry``, ``ops``, ``slam``, ``solvers``) and
-imports nothing of it.  Every Pallas kernel of the JAX package becomes a CUDA
-C++ kernel under ``csrc/``, built with ``nvcc`` at first use and bound with
-``ctypes`` (``_cuda.py``); each kernel's wrapper runs the kernel's plain
-PyTorch version when it is handed CPU tensors.
+names module by module (``geometry``, ``ops``, ``slam``, ``solvers``, ``io``,
+``parallel``, ``runtime``) and imports nothing of it.  Every Pallas kernel of
+the JAX package becomes a CUDA C++ kernel under ``csrc/``, built with ``nvcc``
+at first use and bound with ``ctypes`` (``_cuda.py``); each kernel's wrapper
+runs the kernel's plain PyTorch version when it is handed CPU tensors.
 
 The entry point is ``slam.system.SlamSystem``: ``track`` once per frame
 initializes from two views, tracks, inserts keyframes and maps.  It and the
 lower entry points (``slam.frame.build_frame``, ``slam.tracking.track_frame_core``,
 ``slam.map_state.empty_map``, ``convert``) run on the first CUDA card unless the
 caller passes ``device="cpu"``; with no card and no device named they raise.
+``parallel.sharded_ba`` runs the global BA sharded over the ranks of a
+``torch.distributed`` process group and the pose optimisation over a batch.
 """
 
 __version__ = "0.1.0"

@@ -57,6 +57,13 @@
 // and the fixed reduction order makes two launches on one input agree bit
 // for bit.  A cluster launch that the card refuses is reported, never
 // retried on fewer blocks.
+//
+// Batches (pose_opt_batched): B independent problems of the same shapes in
+// one launch, gridDim = (CLUSTER, B), one cluster per problem; blockIdx.y
+// moves every input and output pointer to its problem's row and the
+// cluster's code is the single problem's.  One cluster fills 8 of the 132
+// SMs, so up to 16 problems run at once where B single launches queue one
+// after another.  A single problem is the case B = 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -584,6 +591,12 @@ __device__ __forceinline__ void regate(const Params& p, const Obs& o, Slice& s, 
 __global__ void __launch_bounds__(THREADS, 1)
 pose_opt_kernel(Params p, const float* __restrict__ T0v, const float* __restrict__ Tpv, Obs o,
                 float* __restrict__ Tout, int* n_inliers) {
+  // the problem of this cluster: row blockIdx.y of every input and output
+  const size_t b = blockIdx.y, n = (size_t)o.n, nb = (size_t)o.nb;
+  T0v += 7 * b; Tpv += 7 * b; Tout += 7 * b; n_inliers += b;
+  o.fXw += 3 * n * b; o.fuv += 2 * n * b; o.finfo += n * b; o.fvalid += n * b; o.fin += n * b;
+  o.bXw += 3 * nb * b; o.bXc += 3 * nb * b; o.binfo += nb * b; o.bvalid += nb * b;
+  o.bin += nb * b;
   __shared__ Shared sh;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -696,23 +709,27 @@ __global__ void se3_check_kernel(const float* T, const float* dx, const float* T
 
 }  // namespace
 
-// T0, Tprior (7,) f32; front Xw (n, 3), uv (n, 2), info (n,) f32, valid (n,)
-// bool; bird Xw, Xc (nb, 3), info (nb,) f32, valid (nb,) bool.  Writes the
-// pose (7,), both inlier masks and the front inlier count.  One cluster of
-// CLUSTER blocks.  Returns cudaGetLastError(), or the launch's own error.
-extern "C" int pose_opt(const float* T0, const float* Tprior, const float* fXw,
-                        const float* fuv, const float* finfo, const bool* fvalid, int n,
-                        const float* bXw, const float* bXc, const float* binfo,
-                        const bool* bvalid, int nb, float fx, float fy, float cx, float cy,
-                        float w_front, float w_bird, float delta, float d2, float two_delta,
-                        float gate_f, float gate_b, float prior_info, int rounds, int iters,
-                        float* Tout, bool* fin, bool* bin, int* n_inliers, void* stream) {
-  if (n < 0 || nb < 0 || rounds < 1 || iters < 0) return (int)cudaErrorInvalidValue;
+// B problems of n front and nb bird rows, each input and output with a
+// leading axis of B: T0, Tprior (B, 7) f32; front Xw (B, n, 3), uv (B, n, 2),
+// info (B, n) f32, valid (B, n) bool; bird Xw, Xc (B, nb, 3), info (B, nb)
+// f32, valid (B, nb) bool.  Writes the poses (B, 7), both inlier masks and
+// the front inlier counts (B,).  One cluster of CLUSTER blocks per problem.
+// Returns cudaGetLastError(), or the launch's own error.
+extern "C" int pose_opt_batched(int B, const float* T0, const float* Tprior, const float* fXw,
+                                const float* fuv, const float* finfo, const bool* fvalid, int n,
+                                const float* bXw, const float* bXc, const float* binfo,
+                                const bool* bvalid, int nb, float fx, float fy, float cx,
+                                float cy, float w_front, float w_bird, float delta, float d2,
+                                float two_delta, float gate_f, float gate_b, float prior_info,
+                                int rounds, int iters, float* Tout, bool* fin, bool* bin,
+                                int* n_inliers, void* stream) {
+  if (B < 1 || B > 65535 || n < 0 || nb < 0 || rounds < 1 || iters < 0)
+    return (int)cudaErrorInvalidValue;
   const Params p{fx, fy, cx, cy, w_front, w_bird, delta, d2, two_delta, gate_f, gate_b,
                  prior_info, rounds, iters};
   const Obs o{fXw, fuv, finfo, fvalid, n, bXw, bXc, binfo, bvalid, nb, fin, bin};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER, 1, 1);
+  cfg.gridDim = dim3(CLUSTER, B, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;
@@ -727,6 +744,22 @@ extern "C" int pose_opt(const float* T0, const float* Tprior, const float* fXw,
                                              n_inliers);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many of the kernel's clusters the card keeps resident at once: a batch
+// larger than this runs in more than one wave.
+extern "C" int pose_opt_max_clusters(int* out) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(out, pose_opt_kernel, &cfg);
 }
 
 // T (n, 7), dx (n, 6), Tp (n, 7) f32 -> Tret (n, 7), logrel (n, 6).

@@ -19,6 +19,13 @@ def project_pinhole(cam: CameraConfig, xyz):
     return torch.stack([u, v], dim=-1)
 
 
+def backproject_pinhole(cam: CameraConfig, uv, z):
+    """Undistorted pixel + depth -> camera-frame 3D (reference ``Frame.cc:1000-1008``)."""
+    x = (uv[..., 0] - cam.cx) * z / cam.fx
+    y = (uv[..., 1] - cam.cy) * z / cam.fy
+    return torch.stack([x, y, z], dim=-1)
+
+
 def _theta_d(cam: CameraConfig, theta):
     t2 = theta * theta
     return theta * (1.0 + t2 * (cam.k1 + t2 * (cam.k2 + t2 * (cam.k3 + t2 * cam.k4))))
@@ -27,6 +34,21 @@ def _theta_d(cam: CameraConfig, theta):
 def _theta_d_prime(cam: CameraConfig, theta):
     t2 = theta * theta
     return 1.0 + t2 * (3 * cam.k1 + t2 * (5 * cam.k2 + t2 * (7 * cam.k3 + t2 * 9 * cam.k4)))
+
+
+def distort_fisheye(cam: CameraConfig, uv_undist):
+    """Ideal (undistorted) pixel -> distorted pixel, equidistant model: with
+    x = (u - cx) / fx, r = |x, y| and theta = atan(r), the pixel moves to
+    x * theta_d(theta) / r."""
+    x = (uv_undist[..., 0] - cam.cx) / cam.fx
+    y = (uv_undist[..., 1] - cam.cy) / cam.fy
+    r = torch.sqrt(x * x + y * y)
+    rd = _theta_d(cam, torch.atan(r))
+    small = r < 1e-9
+    scale = torch.where(small, 1.0, rd / torch.where(small, 1.0, r))
+    u = cam.fx * x * scale + cam.cx
+    v = cam.fy * y * scale + cam.cy
+    return torch.stack([u, v], dim=-1)
 
 
 def undistort_fisheye(cam: CameraConfig, uv_dist, iters: int = 10):

@@ -53,6 +53,18 @@ def cam_xyz_to_base(ext: ExtrinsicsConfig, p):
     return se3.transform(extrinsics_Tbc(ext, p.dtype, p.device), p)
 
 
+def bird_pixel_to_cam_xyz(bird: BirdConfig, ext: ExtrinsicsConfig, pix):
+    """Bird keypoint back-projection of the dual-view Frame (``src/Frame.cc:363-373``):
+    pixel -> base ground point -> camera frame."""
+    return base_xyz_to_cam(ext, bird_pixel_to_base_xy(bird, pix))
+
+
 def Twb_from_Twc(ext: ExtrinsicsConfig, Twc):
     """Camera world pose -> base world pose: Twb = Twc * Tcb."""
     return se3.compose(Twc, extrinsics_Tcb(ext, Twc.dtype, Twc.device))
+
+
+def Tcw_from_Twb(ext: ExtrinsicsConfig, Twb):
+    """Base world pose -> camera world-to-camera: Tcw = (Twb * Tbc)^-1
+    (``Converter::Twb2Tcw``, ``src/Converter.cc:196-202``)."""
+    return se3.inverse(se3.compose(Twb, extrinsics_Tbc(ext, Twb.dtype, Twb.device)))

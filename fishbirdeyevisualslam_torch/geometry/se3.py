@@ -152,6 +152,14 @@ def make(q, t):
     return torch.cat([q, t], dim=-1)
 
 
+def rotation(T):
+    return T[..., :4]
+
+
+def translation(T):
+    return T[..., 4:]
+
+
 def identity(shape=(), dtype=torch.float32, device=None):
     T = const((1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0), dtype, device)
     return T.expand(tuple(shape) + (7,)).clone()
@@ -201,6 +209,17 @@ def retract(T, xi):
     return normalize(compose(exp(xi), T))
 
 
+def to_matrix(T):
+    """Pose 7-vector -> 4x4 homogeneous matrix."""
+    top = torch.cat([quat_to_matrix(T[..., :4]), T[..., 4:, None]], dim=-1)
+    bottom = const((0.0, 0.0, 0.0, 1.0), T.dtype, T.device).expand(T.shape[:-1] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(M):
+    return make(matrix_to_quat(M[..., :3, :3]), M[..., :3, 3])
+
+
 def adjoint(T):
     """6x6 adjoint in (omega, upsilon) ordering: [[R, 0], [[t]x R, R]]."""
     R = quat_to_matrix(T[..., :4])
@@ -223,3 +242,14 @@ def jr_inv_approx(e):
     top = torch.cat([Sw, torch.zeros_like(Sw)], dim=-1)
     J = torch.cat([top, torch.cat([Sv, Sw], dim=-1)], dim=-2)
     return 0.5 * J + torch.eye(6, dtype=e.dtype, device=e.device).expand(J.shape)
+
+
+def random_pose(generator: torch.Generator, scale_rot: float = 1.0, scale_trans: float = 1.0):
+    """A random pose for tests: omega and t drawn from ``generator`` (three
+    standard normals each, omega first) and scaled; the pose is
+    ``make(so3_exp_quat(omega), t)``, as the JAX package maps its draws.
+    Torch's generator gives other numbers than ``jax.random`` from the same
+    seed.  The pose lies on the generator's device."""
+    omega = scale_rot * torch.randn(3, generator=generator, device=generator.device)
+    t = scale_trans * torch.randn(3, generator=generator, device=generator.device)
+    return make(so3_exp_quat(omega), t)

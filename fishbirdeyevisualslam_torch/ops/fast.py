@@ -37,13 +37,19 @@ def _has_arc9(bits):
     return (r9 & 0xFFFF) != 0
 
 
+def _circle_stack(img):
+    """(16, H, W): the intensity at each circle offset (rolled, so it wraps;
+    the caller masks the 3-px border)."""
+    return torch.stack([torch.roll(img, shifts=(-int(dy), -int(dx)), dims=(0, 1))
+                        for dy, dx in CIRCLE])
+
+
 def fast_score_maps(img, thresholds):
     """(score, is_corner) maps for several thresholds from one set of circle
     differences.  The 16 terms are summed in circle order."""
     img = img.to(torch.float32)
     h, w = img.shape
-    d = [torch.roll(img, shifts=(-int(dy), -int(dx)), dims=(0, 1)) - img
-         for dy, dx in CIRCLE]
+    d = _circle_stack(img) - img
     row = torch.arange(h, device=img.device)[:, None]
     col = torch.arange(w, device=img.device)[None, :]
     interior = (row >= 3) & (row < h - 3) & (col >= 3) & (col < w - 3)
@@ -64,6 +70,13 @@ def fast_score_maps(img, thresholds):
         corner = (_has_arc9(bits_b) | _has_arc9(bits_d)) & interior
         out.append((torch.where(corner, torch.maximum(score_b, score_d), zero), corner))
     return out
+
+
+def fast_score_map(img, threshold: float):
+    """(score, is_corner) maps, (H, W) float32 and bool, at one threshold:
+    the score is the larger of the summed excess over the threshold of the
+    bright circle pixels and of the dark ones."""
+    return fast_score_maps(img, (threshold,))[0]
 
 
 def nms3x3(score):

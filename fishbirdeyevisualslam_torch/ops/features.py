@@ -175,6 +175,21 @@ def _finish_keypoints(kp: Keypoints, ang, packed, pm1, img_shape,
     return kp
 
 
+def extract(img, cfg: OrbConfig, n_features: int, detection_mask=None) -> Keypoints:
+    """Exactly ``n_features`` (padded) ORB keypoints of one grayscale float32
+    (H, W) image.  ``detection_mask`` (H, W) bool, if given, drops detections
+    outside it (the reference's front masks and bird-view freespace mask,
+    ``mono_encoder.cc:144-158``, ``Frame.cc:337-339``).  The same code as one
+    view of ``extract_dual``: on the card, one FAST + NMS launch over the
+    levels and one patch gather."""
+    pyr = image_ops.build_pyramid(img.to(torch.float32).contiguous(), cfg.n_levels,
+                                  cfg.scale_factor)
+    maps = cuda_fast.fast_detect_levels(pyr, float(cfg.ini_th_fast), float(cfg.min_th_fast))
+    patches37, kp = _detect_patches(pyr, maps, cfg, n_features)
+    ang, packed, pm1 = _describe_patches(patches37)
+    return _finish_keypoints(kp, ang, packed, pm1, img.shape, detection_mask)
+
+
 def extract_dual(img_a, img_b, cfg: OrbConfig, n_a: int, n_b: int, mask_b=None):
     """Front + bird extraction.  FAST runs once over every level of both
     pyramids, each view's patches are gathered once, and orientation + rBRIEF

@@ -1,5 +1,5 @@
 """Image primitives — the port of ``fishbirdeyevisualslam_tpu/ops/image.py``:
-resize pyramid, per-level feature budgets, Gaussian taps.
+grayscale, resize pyramid, per-level feature budgets, separable Gaussian blur.
 
 Images are float32 (0..255), shape (H, W).
 """
@@ -14,6 +14,12 @@ import numpy as np
 import torch
 
 from fishbirdeyevisualslam_torch.device import table
+
+
+def rgb_to_gray(img):
+    """(H, W, 3) uint8 / float -> (H, W) float32 luma (ITU-R BT.601, like OpenCV)."""
+    img = img.to(torch.float32)
+    return img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
 
 
 def pyramid_shapes(h: int, w: int, n_levels: int, scale: float) -> List[Tuple[int, int]]:
@@ -72,6 +78,26 @@ def _gauss_kernel(ksize: int, sigma: float) -> np.ndarray:
     x = np.arange(-r, r + 1, dtype=np.float64)
     k = np.exp(-0.5 * (x / sigma) ** 2)
     return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
+    """Separable Gaussian with edge-replicate padding (``GaussianBlur(7, 7, 2, 2)``
+    of ``ORBextractor.cc:1080-1100``): a vertical then a horizontal pass, the
+    taps summed in order."""
+    k = [float(v) for v in _gauss_kernel(ksize, sigma)]
+    r = ksize // 2
+    h, w = img.shape
+    rows = torch.arange(-r, h + r, device=img.device).clamp(0, h - 1)
+    x = img[rows]
+    acc = x[0:h] * k[0]
+    for i in range(1, ksize):
+        acc = acc + x[i: i + h] * k[i]
+    cols = torch.arange(-r, w + r, device=img.device).clamp(0, w - 1)
+    x = acc[:, cols]
+    out = x[:, 0:w] * k[0]
+    for i in range(1, ksize):
+        out = out + x[:, i: i + w] * k[i]
+    return out
 
 
 def per_level_budget(n_features: int, n_levels: int, scale: float) -> List[int]:

@@ -44,7 +44,7 @@ from fishbirdeyevisualslam_torch.geometry import ipm, se3, sim3
 from fishbirdeyevisualslam_torch.ops import bow, matcher
 from fishbirdeyevisualslam_torch.slam import map_state as ms
 from fishbirdeyevisualslam_torch.slam.frame import desc_pm1_from_packed, inv_level_sigma2_lut
-from fishbirdeyevisualslam_torch.slam.tracking import _mask_of, _topk_stable, odom_chain_edges
+from fishbirdeyevisualslam_torch.slam.tracking import _mask_lookup, _topk_stable, odom_chain_edges
 from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
 from fishbirdeyevisualslam_torch.solvers.ba import PointBlocks, bundle_adjust
 from fishbirdeyevisualslam_torch.solvers.initializer import GumbelDraws
@@ -207,7 +207,7 @@ def verify_loop_projection(m: ms.MapState, cur_kf: int, cand_kf: int, T_corr,
     under the correction, matched within 10 px; returns the count (0-d)."""
     P = m.mp_pos.shape[0]
     nbhd = _group_of(ms.covisibility_counts(m), cand_kf, m.kf_valid)
-    pts = torch.any(_mask_of(nbhd, m.obs_kf) & m.obs_valid, dim=1) & m.mp_valid
+    pts = torch.any(_mask_lookup(nbhd, m.obs_kf) & m.obs_valid, dim=1) & m.mp_valid
     Q = se3.compose(m.kf_Tcw[cur_kf], se3.inverse(T_corr))
     pc = se3.transform(Q, m.mp_pos)
     uv = cam_ops.project_pinhole(cfg.camera, pc)
@@ -302,7 +302,7 @@ def search_and_fuse(m: ms.MapState, cur_kf: int, loop_kf: int,
     K = m.K
     C = ms.covisibility_counts(m)
     loop_group = _group_of(C, loop_kf, m.kf_valid)
-    loop_pts = torch.any(_mask_of(loop_group, m.obs_kf) & m.obs_valid, dim=1) & m.mp_valid
+    loop_pts = torch.any(_mask_lookup(loop_group, m.obs_kf) & m.obs_valid, dim=1) & m.mp_valid
     w = torch.where(m.kf_valid & (torch.arange(K, device=C.device) != cur_kf), C[cur_kf], -1)
     ww, nb = _topk_stable(w, FUSE_TARGETS - 1)
     nb, ok = torch.stack([nb.to(torch.int32), (ww > 0).to(torch.int32)]).tolist()

@@ -293,6 +293,14 @@ def _front_gates_arrays(cfg: SystemConfig, Tcw_pred, pos, valid, min_dist, max_d
     return uv_proj, vis, pred, est, r_scale
 
 
+def _project_front_gates(m: ms.MapState, cfg: SystemConfig, Tcw_pred, cand_mask,
+                         frustum_gates: bool):
+    """``_front_gates_arrays`` over every map point: (uv_proj, vis,
+    predicted_level, scale_estimated, r_scale)."""
+    return _front_gates_arrays(cfg, Tcw_pred, m.mp_pos, m.mp_valid, m.mp_min_dist,
+                               m.mp_max_dist, m.mp_normal, cand_mask, frustum_gates)
+
+
 def _dense_compat(f: Frame, uv_proj, r, pred, est, vis, cfg: SystemConfig):
     d_uv = torch.abs(f.uv[:, None, :] - uv_proj[None, :, :])
     compat = (d_uv[..., 0] <= r[None, :]) & (d_uv[..., 1] <= r[None, :])
@@ -347,6 +355,29 @@ def match_map_points_dual_ids(m: ms.MapState, f: Frame, cfg: SystemConfig, Tcw_p
     return matcher.resolve_duplicates(res1, P), matcher.resolve_duplicates(res2, P)
 
 
+def _mask_to_ids(cand_mask, cap: int):
+    """A (P,) candidate mask as a candidate id list (holes -1): the ascending
+    candidates in a ``cap`` prefix when 0 < cap < P and they fit (one host
+    read of their count), else every point."""
+    P = cand_mask.shape[0]
+    iota = torch.arange(P, dtype=torch.int32, device=cand_mask.device)
+    if 0 < cap < P and int(torch.sum(cand_mask.to(torch.int32))) <= cap:
+        ids = torch.sort(torch.where(cand_mask, iota, P)).values[:cap]
+        return torch.where(ids < P, ids, -1)
+    return torch.where(cand_mask, iota, -1)
+
+
+def match_map_points_dual(m: ms.MapState, f: Frame, cfg: SystemConfig, Tcw_pred, cand_mask,
+                          radius: float, max_dist: float):
+    """``match_map_points_dual_ids`` over a (P,) candidate mask, compacted to
+    ids by ``_mask_to_ids``: with the fused matcher on the card to a
+    ``match_compact_cap`` prefix and matched by kernel 3, otherwise every
+    point and the plain matcher.  Both give the mask's results."""
+    fused = cfg.tracking.use_fused_matcher and Tcw_pred.device.type == "cuda"
+    ids = _mask_to_ids(cand_mask, cfg.tracking.match_compact_cap if fused else 0)
+    return match_map_points_dual_ids(m, f, cfg, Tcw_pred, ids, radius, max_dist, fused)
+
+
 def match_map_points(m: ms.MapState, f: Frame, cfg: SystemConfig, Tcw_pred, cand_mask,
                      radius: float, max_dist: float, frustum_gates: bool, fused: bool):
     """``SearchByProjection`` against the local map (``ORBmatcher.cc:46``):
@@ -354,9 +385,8 @@ def match_map_points(m: ms.MapState, f: Frame, cfg: SystemConfig, Tcw_pred, cand
     level, octave within one level of the prediction, and with
     ``frustum_gates`` the ``Frame::isInFrustum`` distance and viewing-angle
     checks.  Returns (MatchResult over features, vis (P,))."""
-    uv_proj, vis, pred, est, r_scale = _front_gates_arrays(
-        cfg, Tcw_pred, m.mp_pos, m.mp_valid, m.mp_min_dist, m.mp_max_dist, m.mp_normal,
-        cand_mask, frustum_gates)
+    uv_proj, vis, pred, est, r_scale = _project_front_gates(m, cfg, Tcw_pred, cand_mask,
+                                                            frustum_gates)
     P = m.mp_pos.shape[0]
     r_pt = radius * r_scale
     mp_pm1 = m.mp_desc_pm1
@@ -914,7 +944,7 @@ def triangulate_new_points(m: ms.MapState, new_kf: int, ref_kf: int,
     return ms.add_observation(m, dest, _slot_tensor(ref_kf, can.device), f2, can)
 
 
-def _mask_of(mask_k, idx):
+def _mask_lookup(mask_k, idx):
     """``mask_k[idx]`` for keyframe indices, out-of-range ones clamped."""
     return mask_k[idx.clamp(0, mask_k.shape[0] - 1).long()]
 
@@ -935,8 +965,8 @@ def _local_window_masks(m: ms.MapState, cfg: SystemConfig, center_kf: int):
     is_local[local_idx] = True
     is_local = is_local & m.kf_valid & (w > 0)
     is_local[center_kf] = True
-    n_lobs = torch.sum((_mask_of(is_local, m.obs_kf) & m.obs_valid).to(torch.int32), dim=1)
-    bn_lobs = torch.sum((_mask_of(is_local, m.bobs_kf) & m.bobs_valid).to(torch.int32), dim=1)
+    n_lobs = torch.sum((_mask_lookup(is_local, m.obs_kf) & m.obs_valid).to(torch.int32), dim=1)
+    bn_lobs = torch.sum((_mask_lookup(is_local, m.bobs_kf) & m.bobs_valid).to(torch.int32), dim=1)
     c_obs = torch.any((m.obs_kf == center_kf) & m.obs_valid, dim=1)
     bc_obs = torch.any((m.bobs_kf == center_kf) & m.bobs_valid, dim=1)
     return (is_local, local_idx.to(torch.int32), (n_lobs > 0) & m.mp_valid,
@@ -1238,8 +1268,8 @@ def cull_points(m: ms.MapState, cfg: SystemConfig) -> ms.MapState:
 def _drop_keyframes(m: ms.MapState, keep) -> ms.MapState:
     K = m.K
     return m._replace(kf_valid=keep, kf_seq=torch.where(keep, m.kf_seq, -1),
-                      obs_valid=m.obs_valid & _mask_of(keep, m.obs_kf),
-                      bobs_valid=m.bobs_valid & _mask_of(keep, m.bobs_kf))
+                      obs_valid=m.obs_valid & _mask_lookup(keep, m.obs_kf),
+                      bobs_valid=m.bobs_valid & _mask_lookup(keep, m.bobs_kf))
 
 
 def cull_keyframes(m: ms.MapState, cfg: SystemConfig) -> ms.MapState:

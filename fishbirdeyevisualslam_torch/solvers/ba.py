@@ -14,9 +14,14 @@ reduced solve is a Cholesky; where it fails or gives a non-finite step, an
 LU solve of the same system is taken instead, selected on the device (no host
 read).
 
-Only the single-device semantics are ported: the JAX solver's ``axis_name``
-(a sum of the per-shard systems across devices) belongs to the multi-device
-slice.
+Given a ``torch.distributed`` process group, the landmark blocks are this
+rank's shard of the problem (the counterpart of the JAX solver's
+``axis_name`` under ``shard_map``): each LM step sums the shards' reduced
+camera systems ``Hcc_f + Hcc_b``, their right-hand sides ``bc_f + bc_b`` and
+the family chi2 with ``all_reduce`` over the group, then adds the odometry
+terms, which every rank holds whole.  Poses, the reduced solve and the accept
+decision are replicated, so every rank takes the same steps; the landmark
+back-substitution stays on the shard (``parallel/sharded_ba.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from fishbirdeyevisualslam_torch.config import BAConfig, CameraConfig
 from fishbirdeyevisualslam_torch.geometry import se3
@@ -217,7 +223,8 @@ def _chi2_total(chi2_f, wf_act, chi2_b, wb_act, huber_delta, use_huber: bool):
 
 def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBlocks,
                   bird: PointBlocks, odom: OdomEdges, n_iters_1: int | None = None,
-                  n_iters_2: int | None = None, odom_chunks=None) -> BAResult:
+                  n_iters_2: int | None = None, odom_chunks=None,
+                  group: dist.ProcessGroup | None = None) -> BAResult:
     """Two LM stages like the reference's local BA (``Optimizer.cc:2511-2572``):
     ``n_iters_1`` robust iterations (default ``local_ba_iters_1``), the outlier
     re-gate (chi2 above 5.991 or negative depth), ``n_iters_2`` iterations
@@ -226,8 +233,15 @@ def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBl
     kept where the total chi2 drops; the damping halves on a kept step and
     quadruples otherwise.  Every decision is a device-side select.
     ``odom_chunks``: the chunks of ``odom`` that hold a valid edge
-    (``edge_blocks``)."""
+    (``edge_blocks``).  ``group``: sum the landmark shards' terms over this
+    process group (see the module's docstring); None runs the same ops on
+    the whole problem."""
     K = poses0.shape[0]
+
+    def shard_sum(x):
+        if group is not None:
+            dist.all_reduce(x, group=group)
+        return x
     f_act0 = front.valid & front.point_valid[:, None]
     b_act0 = bird.valid & bird.point_valid[:, None]
 
@@ -235,7 +249,8 @@ def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBl
         c2f, _ = _family_chi2(cam, poses, front._replace(Xw=fXw), ba.w_front, True)
         c2b, _ = _family_chi2(None, poses, bird._replace(Xw=bXw), ba.w_bird, False)
         c2o = _odom_chi2(poses, odom, ba.w_pose)
-        return _chi2_total(c2f, f_act, c2b, b_act, ba.huber_delta, use_huber) + torch.sum(c2o)
+        return shard_sum(_chi2_total(c2f, f_act, c2b, b_act, ba.huber_delta, use_huber)) \
+            + torch.sum(c2o)
 
     def backsub(Hppi, bp, Hcp, kf_idx, dxc):
         corr = torch.einsum("pmij,pmi->pj", Hcp, dxc[kf_idx.long()])
@@ -257,7 +272,8 @@ def bundle_adjust(cam: CameraConfig, ba: BAConfig, poses0, fixed, front: PointBl
             Hcc_b, bc_b, Hppi_b, bp_b, Hcp_b = _accumulate_family(K, e_b, Jc_b, Jp_b, w_b,
                                                                   bird.kf_idx, lam)
             Hcc_o, bc_o = _odom_terms(K, poses, odom, ba.w_pose, odom_chunks)
-            dxc = _solve_reduced(Hcc_f + Hcc_b + Hcc_o, bc_f + bc_b + bc_o, fixed, lam)
+            dxc = _solve_reduced(shard_sum(Hcc_f + Hcc_b) + Hcc_o, shard_sum(bc_f + bc_b) + bc_o,
+                                 fixed, lam)
             dxf = backsub(Hppi_f, bp_f, Hcp_f, front.kf_idx, dxc)
             dxb = backsub(Hppi_b, bp_b, Hcp_b, bird.kf_idx, dxc)
             poses_new = torch.where(fixed[:, None], poses, se3.retract(poses, dxc))

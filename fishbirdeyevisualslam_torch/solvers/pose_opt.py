@@ -170,3 +170,41 @@ def pose_optimization(cam: CameraConfig, ba: BAConfig, Tcw0, front: FrontObs, bi
     n_enough = torch.sum(front.valid.to(torch.int32)) >= 3
     T = torch.where(n_enough, T, Tcw0)
     return PoseOptResult(T, f_in, b_in, torch.sum(f_in.to(torch.int32)).to(torch.int32))
+
+
+def bird_only_optimization(ba: BAConfig, Tcw0, bird: BirdObs) -> PoseOptResult:
+    """``Optimizer::BirdOptimization`` (``src/Optimizer.cc:708-835``): the
+    rounds and iterations of ``pose_optimization`` over the bird edges alone,
+    with no prior.  The front inlier mask comes back empty and ``n_inliers``
+    counts the bird inliers."""
+    eye6 = torch.eye(6, dtype=Tcw0.dtype, device=Tcw0.device)
+
+    def one_round(T, b_in, use_huber):
+        b_act = b_in.to(torch.float32)
+
+        def build_full(T):
+            H, g, c2 = _bird_terms(T, bird, ba.w_bird, ba.huber_delta, use_huber, b_act)
+            return H, g, _robust_sum(c2, b_act, ba.huber_delta, use_huber)
+
+        H, g, err = build_full(T)
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=T.device)
+        for _ in range(ba.pose_iters):
+            dx = _chol_solve6(H + lam * torch.diag(torch.diagonal(H)) + 1e-10 * eye6, g)
+            T_c = se3.retract(T, dx)
+            H_c, g_c, err_c = build_full(T_c)
+            accept = (err_c < err) & torch.all(torch.isfinite(dx))
+            T = torch.where(accept, T_c, T)
+            err = torch.where(accept, err_c, err)
+            H = torch.where(accept, H_c, H)
+            g = torch.where(accept, g_c, g)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-10, 1e6)
+        eb, _, _ = res.bird_residuals(T, bird.Xw, bird.Xc)
+        chi2 = torch.sum(eb * eb, dim=-1) * (bird.inv_sigma2 * ba.w_bird)
+        return T, bird.valid & (chi2 <= ba.chi2_bird * (ba.w_bird + 1e-9))
+
+    T, b_in = Tcw0, bird.valid
+    for it in range(ba.pose_rounds):
+        T, b_in = one_round(Tcw0 if it < ba.pose_rounds - 1 else T, b_in, it < 3)
+    T = torch.where(torch.sum(bird.valid.to(torch.int32)) >= 3, T, Tcw0)
+    return PoseOptResult(T, torch.zeros((0,), dtype=torch.bool, device=Tcw0.device), b_in,
+                         torch.sum(b_in.to(torch.int32)).to(torch.int32))

@@ -1050,3 +1050,116 @@ def test_degraded_frame_with_contour(dev):
         print(f"{name}: {len(ka)} keypoints on the card, {len(kb)} on the CPU, "
               f"{share:.4f} of the card's among the CPU's")
         assert share >= 0.97, name
+
+
+@pytest.mark.parametrize("B,n,nb", [(16, 2048, 2048), (3, 300, 80), (5, 6000, 4000)])
+def test_pose_optimization_batched(dev, B, n, nb):
+    """One launch over B problems (a cluster each) bit-identical to B single
+    launches, row by row, and each row within the single kernel's bounds of
+    its plain version (pose 1e-3, inlier flips under 2%, n_inliers within 5);
+    rows 6000 + 4000 go past the cluster's registers."""
+    from fishbirdeyevisualslam_torch.config import SystemConfig
+    from fishbirdeyevisualslam_torch.geometry import se3
+    from fishbirdeyevisualslam_torch.solvers import cuda_pose_opt
+    from fishbirdeyevisualslam_torch.solvers.pose_opt import BirdObs, FrontObs
+    cfg = SystemConfig()
+    probs = [_pose_problem(dev, n, nb, 100 + b) for b in range(B)]
+    T0 = torch.stack([se3.retract(p[0], torch.tensor([0.01, 0, -0.01, 0.05, 0.02 * b, 0],
+                                                     device=dev)) for b, p in enumerate(probs)])
+    front = FrontObs(*(torch.stack(x) for x in zip(*(p[1] for p in probs))))
+    bird = BirdObs(*(torch.stack(x) for x in zip(*(p[2] for p in probs))))
+    n0 = cuda_pose_opt.pose_optimization_batched.launches
+    got = cuda_pose_opt.pose_optimization_batched(cfg.camera, cfg.ba, T0, front, bird, T0, 100.0)
+    assert cuda_pose_opt.pose_optimization_batched.launches == n0 + 1
+    assert got.Tcw.shape == (B, 7) and got.n_inliers.shape == (B,)
+    for b, (_, fo, bo) in enumerate(probs):
+        one = cuda_pose_opt.pose_optimization(cfg.camera, cfg.ba, T0[b], fo, bo, T0[b], 100.0)
+        for x, y in zip(got, one):
+            assert torch.equal(x[b], y)
+        ref = cuda_pose_opt.pose_optimization_plain(cfg.camera, cfg.ba, T0[b], fo, bo, T0[b],
+                                                    100.0)
+        assert _pose_err(got.Tcw[b], ref.Tcw) < 1e-3
+        assert _flips(got.front_inlier[b], ref.front_inlier) < 0.02
+        assert _flips(got.bird_inlier[b], ref.bird_inlier) < 0.02
+        assert abs(int(got.n_inliers[b]) - int(ref.n_inliers)) <= 5
+
+
+def test_distributed_ba_world_size_1_nccl(dev, tmp_path):
+    """``distributed_bundle_adjust`` over a one-rank NCCL group bit-identical
+    to ``bundle_adjust`` on ``torch_scenes.ba_problem``."""
+    import torch.distributed as dist
+    from fishbirdeyevisualslam_torch import convert
+    from fishbirdeyevisualslam_torch.parallel import sharded_ba
+    from fishbirdeyevisualslam_torch.solvers import ba
+    from torch_scenes import TCFG, ba_problem
+    p = ba_problem()
+    args = (torch.from_numpy(p["poses0"]).to(dev), torch.from_numpy(p["fixed"]).to(dev),
+            convert.from_numpy(ba.PointBlocks, p["front"], dev),
+            convert.from_numpy(ba.PointBlocks, p["bird"], dev),
+            convert.from_numpy(ba.OdomEdges, p["odom"], dev))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        mesh = sharded_ba.make_mesh(device=dev)
+        got = sharded_ba.distributed_bundle_adjust(TCFG, mesh, *args, n_iters_1=5, n_iters_2=5)
+    finally:
+        dist.destroy_process_group()
+    want = ba.bundle_adjust(TCFG.camera, TCFG.ba, *args, n_iters_1=5, n_iters_2=5)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_match_map_points_dual_card(dev):
+    """The mask form on the card (compacted ids, kernel 3) equal to the CPU's
+    plain matcher on ``torch_scenes.slice_scene``, under both routes of the
+    compaction."""
+    import dataclasses
+    from fishbirdeyevisualslam_torch import convert
+    from fishbirdeyevisualslam_torch.ops import cuda_matcher
+    from fishbirdeyevisualslam_torch.slam import tracking as tr
+    from torch_scenes import TCFG, slice_scene
+    s = slice_scene()
+    cand = s["m"]["mp_valid"] & (np.random.RandomState(0).rand(s["m"]["mp_valid"].shape[0])
+                                 < 0.7)
+    th = float(TCFG.matcher.th_high)
+
+    def run(d, cfg):
+        return tr.match_map_points_dual(convert.map_state_from_numpy(s["m"], d),
+                                        convert.frame_from_numpy(s["frame"], d), cfg,
+                                        torch.from_numpy(s["Tcw"]).float().to(d),
+                                        torch.from_numpy(cand).to(d), 15.0, th)
+
+    want = run(torch.device("cpu"), TCFG)
+    for cap in (TCFG.tracking.match_compact_cap, 16):
+        cfg = TCFG.replace(tracking=dataclasses.replace(TCFG.tracking, match_compact_cap=cap))
+        n0 = cuda_matcher.fused_projection_match_dual.launches
+        got = run(dev, cfg)
+        assert cuda_matcher.fused_projection_match_dual.launches == n0 + 1
+        for r, w in zip(got, want):
+            assert all(torch.equal(x.cpu(), y) for x, y in zip(r, w))
+
+
+def test_extract_card(dev):
+    """``extract`` on the card: the front view of ``extract_dual`` exactly,
+    and the bird view with its detection mask."""
+    from scipy.ndimage import gaussian_filter
+    from fishbirdeyevisualslam_torch.config import OrbConfig
+    from fishbirdeyevisualslam_torch.ops import features
+    rng = np.random.RandomState(2)
+    imgs = []
+    for shape in ((400, 950), (384, 384)):
+        img = gaussian_filter(rng.rand(*shape), 1.5)
+        imgs.append(torch.from_numpy(((img - img.min()) / (img.max() - img.min()) * 255)
+                                     .astype(np.float32)).to(dev))
+    mask = torch.ones(384, 384, dtype=torch.bool, device=dev)
+    mask[:40] = False
+    orb = OrbConfig()
+    dual = features.extract_dual(imgs[0], imgs[1], orb, 2048, 2048, mask_b=mask)
+    n0 = (cuda_fast.fast_detect_levels.launches, cuda_patch.extract_patches.launches)
+    one = (features.extract(imgs[0], orb, 2048),
+           features.extract(imgs[1], orb, 2048, detection_mask=mask))
+    assert (cuda_fast.fast_detect_levels.launches, cuda_patch.extract_patches.launches) \
+        == (n0[0] + 2, n0[1] + 2)
+    for a, b in zip(one, dual):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
